@@ -179,3 +179,29 @@ def search_by_projection(
         ok = ok & _ratio_ok(best, second, idx, idx2, nn_ratio, octave_t)
     ok = ok & _is_target_winner(idx, best, ok, desc_t.shape[-2])
     return Matches(idx=idx, dist=best, valid=ok)
+
+
+def search_for_initialization(
+    kp1_xy: torch.Tensor,
+    kp1_desc: torch.Tensor,
+    kp1_valid: torch.Tensor,
+    kp1_angle: torch.Tensor,
+    kp2_xy: torch.Tensor,
+    kp2_desc: torch.Tensor,
+    kp2_valid: torch.Tensor,
+    kp2_angle: torch.Tensor,
+    kp2_octave: torch.Tensor,
+    window: float = 100.0,
+    max_dist: int = 50,
+    nn_ratio: float = 0.9,
+    check_rotation: bool = True,
+) -> Matches:
+    """Two-view matching for monocular initialization, targets of octave 0
+    of kp2_octave only (reference: ORBmatcher.cc:405-520)."""
+    radii = torch.full(kp1_xy.shape[:1], window, dtype=torch.float32, device=kp1_xy.device)
+    mask = window_mask(kp1_xy, radii, kp2_xy) & (kp2_octave == 0).unsqueeze(-2)
+    m = match(kp1_desc, kp2_desc, kp1_valid, kp2_valid, pair_mask=mask,
+              max_dist=max_dist, nn_ratio=nn_ratio)
+    if check_rotation:
+        m = m._replace(valid=rotation_consistency(kp1_angle, kp2_angle[m.idx.long()], m.valid))
+    return m

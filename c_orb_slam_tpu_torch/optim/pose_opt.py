@@ -18,9 +18,9 @@ from c_orb_slam_tpu_torch.optim import residuals as res
 
 
 class PoseOptResult(NamedTuple):
-    pose: torch.Tensor  # (3, 4) optimized Tcw
-    inliers: torch.Tensor  # (N,) bool
-    n_inliers: torch.Tensor  # () int32
+    pose: torch.Tensor  # (..., 3, 4) optimized Tcw
+    inliers: torch.Tensor  # (..., N) bool
+    n_inliers: torch.Tensor  # (...) int32
 
 
 def optimize_pose(
@@ -41,7 +41,10 @@ def optimize_pose(
     """Optimize a camera pose against fixed 3D points.
 
     xw: (N, 3) world points; obs: (N, 3) (u, v, ur) with ur ignored for
-    mono rows; valid: initial match mask."""
+    mono rows; valid: initial match mask. A leading batch dimension on T0
+    (..., 3, 4) and xw/obs (..., N, .) solves that many independent
+    problems at once (the JAX package vmaps this function); the
+    per-observation arrays broadcast against it."""
     chi2_th = torch.where(
         is_stereo, torch.tensor(chi2_stereo, device=xw.device),
         torch.tensor(chi2_mono, device=xw.device),
@@ -56,9 +59,9 @@ def optimize_pose(
             w = inv_sigma2 * weight_mask
             if rnd < 2:  # the reference drops the kernel from round 3
                 w = w * res.huber_weight(res.chi2(r, inv_sigma2), chi2_th)
-            Jw = J * w[:, None, None]
-            H = torch.einsum("nij,nik->jk", Jw, J) + eye6
-            b = torch.einsum("nij,ni->j", Jw, r)
+            Jw = J * w[..., None, None]
+            H = torch.einsum("...nij,...nik->...jk", Jw, J) + eye6
+            b = torch.einsum("...nij,...ni->...j", Jw, r)
             # r = obs - pred; J = d r / d xi  =>  normal eq H dx = -b.
             # solve_ex: no error check, so no device sync per iteration.
             dx = torch.linalg.solve_ex(H, -b)[0]
@@ -66,5 +69,5 @@ def optimize_pose(
         r, _, _ = res.residual_and_jacobians(T, xw, obs, K, bf, is_stereo)
         inlier_mask = valid & (res.chi2(r, inv_sigma2) <= chi2_th)
     return PoseOptResult(
-        pose=T, inliers=inlier_mask, n_inliers=inlier_mask.sum(dtype=torch.int32)
+        pose=T, inliers=inlier_mask, n_inliers=inlier_mask.sum(-1, dtype=torch.int32)
     )

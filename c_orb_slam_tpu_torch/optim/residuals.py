@@ -27,7 +27,10 @@ def residual_and_jacobians(T, xw, obs, K, bf, is_stereo):
     eye = torch.eye(3, dtype=xc.dtype, device=xc.device).expand(*Jproj.shape[:-2], 3, 3)
     Jxi = torch.cat([eye, -so3.hat(xc)], dim=-1)  # d(xc)/d(xi) = [I | -hat(xc)]
     J_pose = -(Jproj @ Jxi)
-    J_point = -(Jproj @ se3.rotation(T))
+    R = se3.rotation(T)
+    if xw.dim() > T.dim() - 1:  # (..., N, 3) points per transform
+        R = R.unsqueeze(-3)
+    J_point = -(Jproj @ R)
     return r, J_pose, J_point
 
 

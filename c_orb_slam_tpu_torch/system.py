@@ -6,9 +6,10 @@ TrackRGBD :116-280, Reset :295, Shutdown :301, trajectory savers
 keyframe insertion. Every tensor lives on the ``device`` given to the
 constructor.
 
-Ported: RGB-D tracking with loop closing off. Monocular and stereo input,
-loop closing (with its vocabulary), localization mode and map
-checkpoints raise NotImplementedError naming their ROADMAP.md item.
+Ported: monocular, stereo and RGB-D tracking (with relocalization) with
+loop closing off. Loop closing (with its vocabulary), localization mode
+and map checkpoints raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -58,15 +59,27 @@ class System:
         self.local_mapping.metrics = self.metrics
 
     # ------------------------------------------------------------------
-    def track_monocular(self, image, timestamp: float):
-        _not_ported("monocular tracking", "mono init, twoview")
+    def _check_sensor(self, sensor: int, call: str):
+        if self.cfg.sensor != sensor:
+            raise ValueError(f"{call} needs cfg.sensor == {sensor}, not {self.cfg.sensor}")
 
-    def track_stereo(self, left, right, timestamp: float):
-        _not_ported("stereo tracking", "stereo frontend")
+    def track_monocular(self, image, timestamp: float) -> Optional[np.ndarray]:
+        self._check_sensor(Sensor.MONOCULAR, "track_monocular")
+        with self.metrics.stage("frame_build"):
+            f = frame_mod.build_mono(_to_gray_f32(image, self.device), self.cfg)
+        return self._track(f, timestamp)
+
+    def track_stereo(self, left, right, timestamp: float) -> Optional[np.ndarray]:
+        """Rectified stereo pair (reference: System::TrackStereo)."""
+        self._check_sensor(Sensor.STEREO, "track_stereo")
+        with self.metrics.stage("frame_build"):
+            f = frame_mod.build_stereo(
+                _to_gray_f32(left, self.device), _to_gray_f32(right, self.device), self.cfg
+            )
+        return self._track(f, timestamp)
 
     def track_rgbd(self, image, depth, timestamp: float) -> Optional[np.ndarray]:
-        if self.cfg.sensor != Sensor.RGBD:
-            raise ValueError("track_rgbd needs cfg.sensor == Sensor.RGBD")
+        self._check_sensor(Sensor.RGBD, "track_rgbd")
         with self.metrics.stage("frame_build"):
             f = frame_mod.build_rgbd(
                 _to_gray_f32(image, self.device),

@@ -6,10 +6,10 @@ Track() :267-506, motion model :867, reference keyframe :757, local map
 dispatching device steps written as plain tensor code: frustum culling,
 projection matching on the window_top2 kernel, motion-only Gauss-Newton.
 
-Ported: depth-initialised (stereo/RGB-D) tracking with the pipelined
-fused step. Not ported yet, each raising NotImplementedError that names
-its ROADMAP.md item: monocular initialisation (two-view RANSAC),
-relocalization, and localization mode with VO points.
+Ported: monocular (two-view RANSAC + initial BA) and depth-initialised
+(stereo/RGB-D) tracking, the pipelined fused step, and relocalization
+(PnP RANSAC against recent keyframes). Localization mode with VO points
+is not ported yet (ROADMAP.md queue 1: product surface).
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ import torch
 from c_orb_slam_tpu_torch.config import SlamConfig, Sensor
 from c_orb_slam_tpu_torch.frontend import frame as frame_mod
 from c_orb_slam_tpu_torch.geometry import camera, np_se3, se3, so3
-from c_orb_slam_tpu_torch.ops import match
-from c_orb_slam_tpu_torch.optim import pose_opt
+from c_orb_slam_tpu_torch.ops import match, pnp, twoview
+from c_orb_slam_tpu_torch.optim import ba as ba_mod, pose_opt
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.utils.host import fetch, fetch_async, to_device
 
@@ -112,11 +112,13 @@ def _ref_kf_step(cfg: SlamConfig, T0, k: int, kf_mp_k, KF_desc, KF_angle,
 
 def _local_map_step(cfg: SlamConfig, T0, local_idx, pt_fresh, seed_mp, PT_xyz,
                     PT_normal, PT_mind, PT_maxd, PT_desc, PT_valid, f, K,
-                    inv_sigma2_levels, sf):
+                    inv_sigma2_levels, sf, radius_override: Optional[float] = None,
+                    nn_ratio_override: Optional[float] = None):
     """Fused local-map tracking: frustum cull, projection search over the
     covisibility-local point set, pose GN over seed + new matches
     (reference: Tracking.cc:930-974, 1143-1230). Radius 4/6 px and octave
-    gate [-3, +2], as in the JAX package."""
+    gate [-3, +2], as in the JAX package; relocalization's widening rounds
+    override the radius and the ratio."""
     safe_l = torch.clamp(local_idx, min=0).long()
     pt_xyz, pt_desc = PT_xyz[safe_l], PT_desc[safe_l]
     pt_valid = (local_idx >= 0) & PT_valid[safe_l]
@@ -125,12 +127,18 @@ def _local_map_step(cfg: SlamConfig, T0, local_idx, pt_fresh, seed_mp, PT_xyz,
     in_view, uv, octave, view_cos = _frustum(
         cfg, T0, pt_xyz, PT_normal[safe_l], PT_mind[safe_l], PT_maxd[safe_l], pt_valid, K
     )
-    radii = torch.where(view_cos > 0.998, 4.0, 6.0) * sf[octave.long()]
+    if radius_override is None:
+        r = torch.where(view_cos > 0.998, 4.0, 6.0)
+    else:
+        r = torch.full_like(view_cos, radius_override)
     m = match.search_by_projection(
-        uv, radii, pt_desc, in_view & pt_fresh,
+        uv, r * sf[octave.long()], pt_desc, in_view & pt_fresh,
         f.xy, f.octave, f.desc, f.valid & ~seed_valid,
         torch.clamp(octave - 3, min=0), torch.clamp(octave + 2, max=cfg.orb.n_levels - 1),
-        max_dist=cfg.matcher.th_high, nn_ratio=cfg.matcher.nn_ratio_mapping + 0.2,
+        max_dist=cfg.matcher.th_high,
+        nn_ratio=(
+            cfg.matcher.nn_ratio_mapping + 0.2 if nn_ratio_override is None else nn_ratio_override
+        ),
     )
     feat_q = _scatter_rows(m, f.xy.shape[0])
     feat_new = feat_q >= 0
@@ -260,9 +268,14 @@ class Tracking:
         self.frame_id = -1
         self.last_kf_frame_id = -1
         self.last_reloc_frame_id = -1000000
-        # RANSAC draws of the paths still to port (mono init, reloc) take
-        # this generator, seeded like the JAX package's PRNGKey.
-        self.generator = torch.Generator(device="cpu").manual_seed(cfg.vocabulary.seed)
+        # Monocular initialization: the first view of the two-view pair.
+        self._init_frame: Optional[frame_mod.FrameData] = None
+        self._init_frame_id = -1
+        self._init_timestamp = 0.0
+        # RANSAC draws (mono init, relocalization) take this generator,
+        # seeded like the JAX package's PRNGKey; it lives on the tensors'
+        # device, as torch.multinomial requires.
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.vocabulary.seed)
         # Per-frame trajectory log: (frame_id, T_cr relative to ref_kf,
         # ref_kf, state, timestamp) — loop/BA corrections of the reference
         # keyframe fix the exported trajectory retroactively
@@ -441,10 +454,131 @@ class Tracking:
     # ------------------------------------------------------------------
     # Initialization
     # ------------------------------------------------------------------
-    def _monocular_initialization(self, f):
-        raise NotImplementedError(
-            "monocular initialization not ported yet (ROADMAP.md queue 1: mono init, twoview)"
+    def _monocular_initialization(self, f: frame_mod.FrameData):
+        """Two-view bootstrap (reference: Tracking.cc:563-737)."""
+        n_valid = int(f.valid.sum())
+        min_matches = self.cfg.tracking.min_init_matches
+        if self._init_frame is None:
+            if n_valid >= min_matches:
+                self._init_frame = f
+                self._init_frame_id = self.frame_id
+                self._init_timestamp = self.current_timestamp
+            return
+        if n_valid < min_matches:
+            self._init_frame = None
+            return
+        f0 = self._init_frame
+        # All octaves take part (the tracker passes zero octaves): a
+        # documented deviation of the JAX package from the reference's
+        # level-0 restriction (ORBmatcher.cc:415), kept here.
+        m = match.search_for_initialization(
+            f0.xy, f0.desc, f0.valid, f0.angle,
+            f.xy, f.desc, f.valid, f.angle, torch.zeros_like(f.octave),
+            window=100.0, max_dist=self.cfg.matcher.th_low,
+            nn_ratio=self.cfg.matcher.nn_ratio_tracking,
         )
+        res = twoview.initialize(
+            f0.xy, f.xy[m.idx.long()], m.valid, self.K, generator=self.generator,
+            n_hypotheses=self.cfg.capacity.ransac_init_iters,
+        )
+        valid0, idx1, res_ok, good, pts, T21 = fetch(
+            m.valid, m.idx, res.ok, res.good, res.points, res.T21
+        )
+        if valid0.sum() < min_matches:
+            self._init_frame = None
+            return
+        if not bool(res_ok):
+            return
+        # Median-depth scale normalization (reference: Tracking.cc:689-713).
+        med = float(np.median(pts[good, 2]))
+        if med <= 0:
+            self._init_frame = None
+            return
+        pts = pts / med
+        T21[:, 3] /= med
+        mp0 = self._create_initial_map(f0, f, idx1, good, pts, T21)
+        self.state = TrackState.OK
+        self.last_pose = T21
+        self.velocity = None
+        self.last_mp = mp0
+        self._init_frame = None
+
+    def _create_initial_map(self, f0, f1, idx1, good, pts, T21):
+        """The two initial keyframes and their points, then the initial
+        BA (reference: Tracking.cc:640-737)."""
+        mp = self.map
+        f0h = frame_mod.FrameData(*fetch(*f0))
+        f1h = frame_mod.FrameData(*fetch(*f1))
+        desc0 = f0h.desc.view(np.uint32)
+        k0 = mp.add_keyframe(
+            self._init_frame_id, np.eye(3, 4, dtype=np.float32),
+            f0h.xy, f0h.octave, f0h.angle, desc0, f0h.valid, timestamp=self._init_timestamp,
+        )
+        k1 = mp.add_keyframe(
+            self.frame_id, T21, f1h.xy, f1h.octave, f1h.angle, f1h.desc.view(np.uint32),
+            f1h.valid, timestamp=self.current_timestamp,
+        )
+        cur_mp = np.full(f1h.xy.shape[0], -1, np.int64)
+        gi = np.nonzero(good)[0]
+        new_idx = mp.add_points_batch(pts[gi], desc0[gi], k0)
+        mp.pt_obs_kf[new_idx, 0] = k0
+        mp.pt_obs_feat[new_idx, 0] = gi
+        mp.pt_obs_kf[new_idx, 1] = k1
+        mp.pt_obs_feat[new_idx, 1] = idx1[gi]
+        mp.pt_n_obs[new_idx] = 2
+        mp.kf_mp[k0, gi] = new_idx
+        mp.kf_mp[k1, idx1[gi]] = new_idx
+        mp.update_points_batch(new_idx)
+        cur_mp[idx1[gi]] = new_idx
+        mp.update_connections(k0)
+        mp.update_connections(k1)
+        self.ref_kf = k1
+        self.last_kf_frame_id = self.frame_id
+        self.frames_since_kf = 0
+        mp.big_change_idx += 1
+        # Full BA of the two-view map (Tracking.cc:686,
+        # GlobalBundleAdjustemnt(pMap, 20)).
+        self._initial_bundle_adjustment(k0, k1)
+        return cur_mp
+
+    def _initial_bundle_adjustment(self, k0: int, k1: int):
+        """Dense-Schur BA of the two initial keyframes (k0 fixed) and every
+        live point, then re-normalization to median depth 1 (the BA can
+        drift the free scale gauge of a two-view map)."""
+        mp = self.map
+        pts = mp.live_points()
+        kf, feat = mp.pt_obs_kf[pts], mp.pt_obs_feat[pts]
+        has = (np.arange(kf.shape[1]) < mp.pt_n_obs[pts][:, None]) & (kf >= 0)
+        si, oi = np.nonzero(has)  # point-major, as the reference's edge loop
+        okf, ofeat = kf[si, oi], feat[si, oi]
+        inv_s2 = 1.0 / np.asarray(self.cfg.orb.level_sigma2(), np.float64)
+        uv = mp.kf_xy[okf, ofeat]
+        n_obs = len(si)
+        dev = self.device
+        problem = ba_mod.BAProblem(
+            *to_device(
+                dev, np.stack([mp.kf_pose[k0], mp.kf_pose[k1]]), np.array([True, False]),
+                np.ones(2, bool), mp.pt_xyz[pts], np.ones(len(pts), bool),
+                np.where(okf == k0, 0, 1).astype(np.int32), si.astype(np.int32),
+                np.concatenate([uv, np.zeros((n_obs, 1), np.float32)], axis=1),
+                np.zeros(n_obs, bool), inv_s2[mp.kf_octave[okf, ofeat]].astype(np.float32),
+                np.ones(n_obs, bool),
+            ),
+            K=self.K, bf=torch.tensor(0.0, device=dev),
+        )
+        cam_T, points = fetch(
+            *ba_mod.optimize(problem, iters=self.cfg.optimizer.init_ba_its, use_huber=True)
+        )
+        mp.kf_pose[k1] = cam_T[1]
+        mp.pt_xyz[pts] = points
+        T = mp.kf_pose[k0]
+        med = float(np.median(mp.pt_xyz[pts] @ T[2, :3] + T[2, 3]))
+        if med > 0:
+            mp.pt_xyz[pts] /= med
+            mp.kf_pose[k1][:, 3] /= med
+        mp.mark_kf_pose_dirty([k1])
+        mp.mark_points_dirty(pts)
+        self.last_pose = mp.kf_pose[k1].copy()
 
     def _stereo_initialization(self, f: frame_mod.FrameData):
         """Bootstrap from depth (reference: Tracking.cc:509-561)."""
@@ -555,6 +689,11 @@ class Tracking:
         ok, pose, mp = self._fused_postprocess(f, fetched, pts_pad, safe, last_mp, f_desc)
         if ok:
             return ok, pose, mp
+        # The device pose chain was advanced with the failed step's
+        # prediction; the retry's pose reaches the next dispatch through
+        # the host instead (the JAX package keeps extrapolating the failed
+        # prediction, doubling its error on the next frame).
+        self._chain = None
         dev = self.map.device
         dev.flush()
         wide, _ = _full_track_step(
@@ -630,10 +769,123 @@ class Tracking:
             return False, None, None
         return True, pose, cur_mp
 
-    def _relocalize(self, f):
-        raise NotImplementedError(
-            "relocalization not ported yet (ROADMAP.md queue 1: relocalization, ops/pnp.py)"
+    def _optimize_frame_pose(self, f, T0, mp_idx: np.ndarray):
+        """Motion-only GN against the frame's current matches mp_idx
+        (feature -> point, -1 none); returns (pose, inlier mask, n)."""
+        has = mp_idx >= 0
+        dev = self.device
+        xyz, has_d, T0_d = to_device(
+            dev, self.map.pt_xyz[np.maximum(mp_idx, 0)], has, np.asarray(T0, np.float32)
         )
+        is_stereo = (f.ur > 0) & has_d
+        obs = torch.cat([f.xy, torch.where(is_stereo, f.ur, 0.0)[:, None]], dim=1)
+        result = _optimize(
+            self.cfg, T0_d, xyz, obs, self.inv_sigma2_levels[f.octave.long()], is_stereo,
+            has_d, self.K,
+        )
+        pose, inl, n = fetch(result.pose, result.inliers, result.n_inliers)
+        return pose, inl, int(n)
+
+    def _relocalize(self, f: frame_mod.FrameData):
+        """Global relocalization (reference: Tracking.cc:1341-1502):
+        candidate keyframes -> descriptor match -> PnP RANSAC -> pose GN,
+        then guided-reprojection widening. Candidates are the place
+        recognizer's (reloc_provider, set by the loop path) plus the 10
+        most recent keyframes by insertion serial; with loop closing off
+        there is no provider and no vocabulary is needed."""
+        live = self.map.live_keyframes()
+        if len(live) == 0:
+            return False, None, None
+        candidates = []
+        provider = getattr(self, "reloc_provider", None)
+        if provider is not None:
+            f_desc, f_kp_valid = fetch(f.desc, f.valid)
+            candidates = list(provider.reloc_candidates(f_desc, f_kp_valid))
+        order = np.argsort(self.map.kf_serial[live])
+        recent = [int(k) for k in live[order[-10:]]]
+        candidates = list(dict.fromkeys([int(c) for c in candidates] + recent))
+        q_valid = (self.map.kf_mp[candidates] >= 0) & self.map.kf_kp_valid[candidates]
+        keep = (self.map.kf_mp[candidates] >= 0).sum(1) >= 15
+        candidates = [k for k, ok in zip(candidates, keep) if ok]
+        if not candidates:
+            return False, None, None
+        # Every candidate's match in one batched call over a leading
+        # candidate dimension, read back in one fetch.
+        q_desc_d, q_valid_d = to_device(
+            self.device, self.map.kf_desc[candidates], q_valid[keep]
+        )
+        m = match.match(
+            q_desc_d, f.desc, q_valid_d, f.valid,
+            max_dist=self.cfg.matcher.th_low, nn_ratio=0.75,
+        )
+        m_idx_all, m_valid_all = fetch(m.idx, m.valid)
+        counts = m_valid_all.sum(1)
+        c = int(np.argmax(counts))  # first best, as the candidate loop
+        if counts[c] < 15:
+            return False, None, None
+        k, m_idx, ok_np = candidates[c], m_idx_all[c], m_valid_all[c]
+        kf_mp = self.map.kf_mp[k]
+        sel = np.full(f.xy.shape[0], -1, np.int64)  # padded to keypoint capacity
+        nz = np.nonzero(ok_np)[0]
+        sel[: len(nz)] = nz
+        safe = np.maximum(sel, 0)
+        pt_idx = np.where(sel >= 0, kf_mp[safe], 0)
+        xw_d, feat_d, sel_ok_d = to_device(
+            self.device, self.map.pt_xyz[pt_idx], m_idx[safe].astype(np.int64), sel >= 0
+        )
+        res = pnp.solve_pnp_ransac(
+            xw_d, f.xy[feat_d], sel_ok_d, self.inv_sigma2_levels[f.octave[feat_d].long()],
+            self.K, generator=self.generator, n_hypotheses=self.cfg.capacity.ransac_pnp_iters,
+        )
+        res_ok, res_inliers, res_pose = fetch(res.ok, res.inliers, res.pose)
+        if not bool(res_ok):
+            return False, None, None
+        cur_mp = np.full(f.xy.shape[0], -1, np.int64)
+        inl = res_inliers & (sel >= 0)
+        cur_mp[m_idx[safe[inl]]] = pt_idx[inl]
+        pose, pin, n = self._optimize_frame_pose(f, res_pose, cur_mp)
+        cur_mp[~pin] = -1
+        if n < self.cfg.tracking.min_inliers_pose:
+            return False, None, None
+        # Guided-reprojection widening (Tracking.cc:1441-1480): a coarse
+        # 10 px round, then a 3 px round if close; accept at >= 50
+        # inliers (Tracking.cc:1483).
+        need = self.cfg.tracking.min_inliers_reloc
+        if n < need:
+            pose, cur_mp, n = self._reloc_widen(f, pose, cur_mp, k, 10.0)
+            if self.cfg.tracking.min_inliers_local_map <= n < need:
+                pose, cur_mp, n = self._reloc_widen(f, pose, cur_mp, k, 3.0)
+        if n < need:
+            return False, None, None
+        return True, pose, cur_mp
+
+    def _reloc_widen(self, f, pose, cur_mp, k: int, radius: float):
+        """One guided-reprojection round against keyframe k's map points
+        (reference: ORBmatcher.cc:1472-1599) + pose re-optimization."""
+        kf_mp = self.map.kf_mp[k]
+        pts = np.unique(kf_mp[kf_mp >= 0])
+        pts = pts[self.map.pt_valid[pts]]
+        cap = self.cfg.capacity.local_map_max_points
+        pts_pad = np.full(cap, -1, np.int32)
+        pts_pad[: min(len(pts), cap)] = pts[:cap]
+        fresh = (pts_pad >= 0) & ~np.isin(pts_pad, cur_mp[cur_mp >= 0])
+        dev = self.map.device
+        dev.flush()
+        pose_d, local_idx_d, fresh_d, seed_mp_d = to_device(
+            self.device, np.asarray(pose, np.float32), pts_pad, fresh, cur_mp.astype(np.int32)
+        )
+        _, m_idx, m_valid, pose2, inl, n = fetch(
+            *_local_map_step(
+                self.cfg, pose_d, local_idx_d, fresh_d, seed_mp_d,
+                dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
+                dev.pt_desc, dev.pt_valid, f, self.K, self.inv_sigma2_levels,
+                self._sf_dev, radius_override=radius, nn_ratio_override=1.0,
+            )
+        )
+        new_mp = cur_mp.copy()
+        new_mp[m_idx[m_valid]] = pts_pad[m_valid]
+        new_mp[~inl] = -1
+        return pose2, new_mp, int(n)
 
     def _track_local_map(self, f, pose, cur_mp):
         """Widen matches to the covisibility-local map and re-optimize

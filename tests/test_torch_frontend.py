@@ -35,7 +35,7 @@ from c_orb_slam_tpu_torch.frontend import frame as tframe
 from c_orb_slam_tpu_torch.ops import brief as tbrief, extract as textract, fast as tfast
 from c_orb_slam_tpu_torch.ops import orient as torient, pyramid as tpyr
 
-from synthetic import blob_world, render_depth, render_scene, smooth_trajectory
+from synthetic import blob_world, render_depth, render_scene, render_stereo_pair, smooth_trajectory
 
 K4 = (500.0, 500.0, 320.0, 240.0)
 
@@ -128,3 +128,34 @@ def test_build_rgbd_matches_jax(frame):
     assert (hd[level0] == 0).mean() >= 0.99
     assert hd.mean() <= 4 and np.percentile(hd, 99) <= 24
 
+
+
+def test_build_stereo_matches_jax():
+    """One rendered rectified pair (baseline 0.2 m): on the keypoints both
+    sides share, the stereo-match masks agree on >= 99% and ur and depth
+    within 1e-3 px / 1e-3 m where both matched. The masks may part where a
+    SAD minimum or the median-SAD trim sits on a float32 tie of the
+    resized levels."""
+    xw, inten, size = blob_world(400, seed=5)
+    T = smooth_trajectory(60, speed=0.4)[7]
+    left, right = (np.clip(x, 0, 255).astype(np.uint8).astype(np.float32)
+                   for x in render_stereo_pair(xw, inten, size, T, K4, 0.2))
+
+    def cfg(mod):
+        return mod.SlamConfig(sensor=1, camera=mod.CameraConfig(bf=100.0),
+                              orb=mod.OrbConfig(n_features=1000, n_levels=8))
+
+    fj = jframe.FrameData(*(np.asarray(x) for x in jframe.build_stereo(
+        jnp.asarray(left), jnp.asarray(right), cfg(jcfg))))
+    ft = tframe.FrameData(*(x.numpy() for x in tframe.build_stereo(
+        torch.from_numpy(left), torch.from_numpy(right), cfg(tcfg))))
+    kj, kt = _keymap(fj), _keymap(ft)
+    common = sorted(set(kj) & set(kt))
+    assert len(common) >= 0.99 * len(kj)
+    ij = np.array([kj[k] for k in common])
+    it = np.array([kt[k] for k in common])
+    gj, gt = fj.depth[ij] > 0, ft.depth[it] > 0
+    assert (gj == gt).mean() >= 0.99 and gj.sum() > 200
+    both = gj & gt
+    np.testing.assert_allclose(ft.ur[it][both], fj.ur[ij][both], atol=1e-3)
+    np.testing.assert_allclose(ft.depth[it][both], fj.depth[ij][both], atol=1e-3)

@@ -26,6 +26,10 @@ from synthetic import blob_world, render_depth, render_scene, smooth_trajectory
 
 N_FRAMES = 24
 
+# One intra-op thread: the test processes run side by side, and torch's
+# spinning OpenMP workers across processes slow each small op many-fold.
+torch.set_num_threads(1)
+
 
 def _cfg(mod):
     """tests/e2e_stereo_debug.py's RGB-D configuration."""
@@ -83,10 +87,6 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchSystem(cfg, "cpu")  # loop closing defaults on, as in the JAX API
     sysm = TorchSystem(cfg, "cpu", enable_loop_closing=False)
-    for call in (lambda: sysm.track_monocular(np.zeros((480, 640)), 0.0),
-                 lambda: sysm.track_stereo(np.zeros((480, 640)), np.zeros((480, 640)), 0.0),
-                 sysm.activate_localization_mode,
-                 lambda: sysm.save_map("unused.npz"),
-                 lambda: sysm.tracker._relocalize(None)):
+    for call in (sysm.activate_localization_mode, lambda: sysm.save_map("unused.npz")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
