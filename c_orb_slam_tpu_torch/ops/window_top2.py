@@ -9,10 +9,17 @@ second-best distance over targets ranked by (distance, index) with masked
 pairs at hamming.INVALID_DIST, the best index, and the index of the second
 best (idx2), which the same-octave ratio rule needs.
 
-What bounds the kernel on the H100: at Q = 8192 x T = 1000 the work is
-about 6.6e7 popcounts and about 0.3 MB read, so it is latency- and
-occupancy-bound (64 blocks of 128 queries on 132 SMs), not
-bandwidth-bound; the source file notes the design.
+What bounds the kernel on the H100: operations, not bytes. At Q = 8192 x
+T = 1000 the inputs and outputs are 0.6 MB, the window and octave test of
+8.2e6 pairs is about 1.5 us of the integer/float pipes, and popcounts are
+owed only to the few pairs inside a window, so the kernel lives near the
+time of a launch. Its design (the source file has the detail): a warp
+owns a query and its lanes take interleaved targets, so the grid fills
+the card at every shape of the main path; the window test reads one
+16-byte record per target, and only in-window pairs, compacted by a
+ballot, reach XOR + popcount; lanes merge their top-2 as packed
+(distance, index) keys by shuffles, and the ranks of the masked pairs,
+which are never visited, are filled in closed form.
 
 Dispatch is by where the tensors live: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. There is no fallback between the
@@ -40,9 +47,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and how many of them had each shape (B, Q, T).
 launches = 0
-# nvcc's output of the build this process loaded (ptxas register and
+launch_shapes: dict[tuple[int, int, int], int] = {}
+# The kernel packs (distance, index) into 32 bits: 9 for the distance.
+MAX_TARGETS = 1 << 23
+# nvcc's output of the build this process made (ptxas register and
 # shared-memory report), for the record of a chip run.
 build_log = ""
 _lib = None
@@ -51,6 +62,7 @@ _lib = None
 def reset_launches():
     global launches
     launches = 0
+    launch_shapes.clear()
 
 
 def _nvcc() -> str:
@@ -97,8 +109,20 @@ def _load():
         fn = lib.window_top2_launch
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
+        lib.window_top2_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.window_top2_empty_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def empty_launch(device):
+    """Launch an empty kernel on the device's current stream through the
+    same ctypes route as window_top2: the time no design goes under."""
+    lib = _load()
+    with torch.cuda.device(device):
+        err = lib.window_top2_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty launch failed: cudaError {err}")
 
 
 def window_top2_reference(
@@ -123,6 +147,8 @@ _QUERY_SPEC = (("q_desc", torch.int32, (8,)), ("q_uv", torch.float32, (2,)),
                ("q_hi", torch.int32, ()), ("q_valid", torch.bool, ()))
 _TARGET_SPEC = (("t_desc", torch.int32, (8,)), ("t_xy", torch.float32, (2,)),
                 ("t_octave", torch.int32, ()), ("t_valid", torch.bool, ()))
+# Bytes the kernel's vector loads need a tensor's first element aligned to.
+_ALIGN = {"q_desc": 16, "t_desc": 16, "q_uv": 8, "t_xy": 8}
 
 
 def _check(args: dict, device):
@@ -150,6 +176,17 @@ def _check(args: dict, device):
     return B, Q, T, batched
 
 
+def _check_kernel_limits(args: dict, T: int):
+    """What the CUDA kernel asks beyond _check, and the plain version does
+    not: targets a packed key can index, and the alignment of its vector
+    loads."""
+    if T > MAX_TARGETS:
+        raise ValueError(f"the window_top2 kernel takes up to {MAX_TARGETS} targets, not {T}")
+    for name, align in _ALIGN.items():
+        if args[name].data_ptr() % align:
+            raise ValueError(f"{name} is not aligned to {align} bytes")
+
+
 def window_top2(
     q_desc, q_uv, q_radius, q_lo, q_hi, q_valid,
     t_desc, t_xy, t_octave, t_valid,
@@ -170,11 +207,12 @@ def window_top2(
         return window_top2_reference(**args)
     if device.type != "cuda":
         raise ValueError(f"window_top2 runs on cpu or cuda, not {device}")
+    _check_kernel_limits(args, T)
     global launches
     shape = (B, Q) if batched else (Q,)
-    outs = [torch.empty(shape, dtype=torch.int32, device=device) for _ in range(4)]
+    outs = torch.empty((4, *shape), dtype=torch.int32, device=device).unbind(0)
     if B * Q == 0:
-        return tuple(outs)
+        return outs
     lib = _load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -185,4 +223,5 @@ def window_top2(
     if err != 0:
         raise RuntimeError(f"window_top2 launch failed: cudaError {err}")
     launches += 1
-    return tuple(outs)
+    launch_shapes[(B, Q, T)] = launch_shapes.get((B, Q, T), 0) + 1
+    return outs

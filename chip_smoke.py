@@ -7,8 +7,14 @@ Phase 1 builds the window_top2 kernel (csrc/window_top2.cu, nvcc for
 sm_90a) and holds it against its plain PyTorch version on the card, for
 exact equality of all four outputs, at the shapes the main path gives it
 (TUM geometry with 1000 keypoints, KITTI geometry with 2000) plus
-unaligned, fully-masked, single-target and tie-heavy cases; it times
-both (CUDA events around back-to-back calls, median of 7).
+unaligned, fully-masked, single-target and tie-heavy cases, the local
+map's real window (radius 4-6 px x scale) and the worst case of a kernel
+that culls by window first (every target in every window). It times both
+(CUDA events around 20 back-to-back calls, median of 7: "ms", which is
+what a call costs the main path), the kernel also as a CUDA graph of the
+same 20 calls ("device_ms", its time on the device: the wrapper's host
+side takes longer than the kernel runs), and an empty kernel launched the
+same way; and it computes each case's bound from the case's own inputs.
 
 Phases 2-5 drive the port's entry points with loop closing off, each on a
 synthetic sequence rendered by tests/synthetic.py, and check frames
@@ -54,10 +60,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_case(rng, B, Q, T, *, w=640, h=480, masked_rows=False, ties=False):
+def make_case(rng, B, Q, T, *, w=640, h=480, masked_rows=False, ties=False, window="motion"):
     """Numpy inputs for window_top2 shaped like the main path's calls:
     targets across a w x h image, projected queries near some of them,
-    radius 15 px x level scale, octave windows of width 3."""
+    octave windows of width 3. The radius is the motion model's (15 px x
+    level scale), the local map's (`window="local_map"`: 4-6 px x level
+    scale) or holds every target (`window="all"`, and with `ties`)."""
     import numpy as np
 
     lead = (B,) if B else ()
@@ -75,8 +83,10 @@ def make_case(rng, B, Q, T, *, w=640, h=480, masked_rows=False, ties=False):
            + rng.normal(0, 6, lead + (Q, 2))).astype(np.float32)
     lo = rng.integers(0, 6, lead + (Q,)).astype(np.int32)
     qr = (15.0 * 1.2 ** lo).astype(np.float32)
-    if ties:
-        qr[:] = 2000.0  # every target in the window: ties everywhere
+    if window == "local_map":
+        qr = (rng.uniform(4.0, 6.0, lead + (Q,)) * 1.2 ** lo).astype(np.float32)
+    if ties or window == "all":
+        qr[:] = 2000.0  # every target in the window (with ties: ties everywhere)
     qv = rng.random(lead + (Q,)) > 0.1
     if masked_rows:
         qv[..., : Q // 2] = False  # half the rows fully masked
@@ -89,27 +99,92 @@ def make_case(rng, B, Q, T, *, w=640, h=480, masked_rows=False, ties=False):
     )
 
 
-def time_call(fn, args, launches=20, repeats=7):
-    """Median over `repeats` of the CUDA-event time of `launches`
-    back-to-back calls, divided by `launches` (ms per call)."""
+def _event_ms(run, repeats):
+    """Median over `repeats` of the CUDA-event time of run(), in ms."""
     import torch
 
-    for _ in range(3):
-        fn(**args)
     times = []
     for _ in range(repeats):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(launches):
-            fn(**args)
+        run()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / launches)
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
+def time_call(fn, args, launches=20, repeats=7):
+    """Median over `repeats` of the CUDA-event time of `launches`
+    back-to-back calls, divided by `launches` (ms per call). Reads the
+    host's time to enqueue a call where that exceeds the device's."""
+    for _ in range(3):
+        fn(**args)
+
+    def run():
+        for _ in range(launches):
+            fn(**args)
+
+    return _event_ms(run, repeats) / launches
+
+
+def time_graph(fn, args, launches=20, repeats=7):
+    """The same `launches` calls captured once into a CUDA graph and
+    replayed: ms per call on the device, free of the host's enqueue time."""
+    import torch
+
+    fn(**args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn(**args)
+    graph.replay()
+    torch.cuda.synchronize()
+    return _event_ms(graph.replay, repeats) / launches
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM, and
+# 67 TFLOP/s of float32 outside the tensor cores, which is one operation
+# per lane per clock with a fused multiply-add counted as two: 33.5e12
+# plain float or integer operations a second. POPC runs at 16 a clock an
+# SM against 128 for those (NVIDIA's table of arithmetic throughput for
+# compute capability 9.0): an eighth of that rate.
+HBM_BYTES_PER_S = 3.35e12
+LANE_OPS_PER_S = 67e12 / 2
+POPC_PER_S = LANE_OPS_PER_S / 8
+# The window test of one pair needs 2 subtractions, 2 compares of |.| with
+# the radius, and for the octave range one subtraction and one unsigned
+# compare. Validity is folded into the target once (x = NaN), not per
+# pair, and the conjunction rides on the compares' predicates.
+GATE_OPS_PER_PAIR = 6
+POPC_PER_INSIDE_PAIR = 8  # one per descriptor word
+PLAIN_OPS_PER_INSIDE_PAIR = 15  # 8 XOR + 7 adds of the 8 counts
+
+
+def window_top2_bound(args):
+    """(bound ms, "bytes" or "operations", in-window pairs) of one
+    window_top2 call on these inputs: each input read and each output
+    written once over the HBM rate, against the window test of every pair
+    plus the popcounts of the pairs inside a window, which is what these
+    inputs need, over the pipes' peak rates."""
+    from c_orb_slam_tpu_torch.ops import match
+
+    q = args["q_valid"]
+    mask = (match.window_mask(args["q_uv"], args["q_radius"], args["t_xy"])
+            & match.octave_mask(args["t_octave"], args["q_lo"], args["q_hi"])
+            & q.unsqueeze(-1) & args["t_valid"].unsqueeze(-2))
+    inside = int(mask.sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in args.values()) + 4 * 4 * q.numel()
+    pairs = q.numel() * args["t_valid"].shape[-1]
+    ops_s = ((pairs * GATE_OPS_PER_PAIR + inside * PLAIN_OPS_PER_INSIDE_PAIR) / LANE_OPS_PER_S
+             + inside * POPC_PER_INSIDE_PAIR / POPC_PER_S)
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", inside
+
+
 def phase1(dev):
-    """window_top2 kernel == plain version, exactly; both timed."""
+    """window_top2 kernel == plain version, exactly; both timed, beside
+    the empty launch and each case's bound."""
     import numpy as np
     import torch
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
@@ -128,9 +203,14 @@ def phase1(dev):
         ("kitti_motion_model_2000x2000", dict(B=0, Q=2000, T=2000, w=1241, h=376)),
         ("kitti_local_map_8192x2000", dict(B=0, Q=8192, T=2000, w=1241, h=376)),
         ("kitti_fuse_batch_32x2000x2000", dict(B=32, Q=2000, T=2000, w=1241, h=376)),
+        # The cull's worst case, and the local map's real window.
+        ("dense_window_8192x1000", dict(B=0, Q=8192, T=1000, window="all")),
+        ("sparse_local_map_8192x1000", dict(B=0, Q=8192, T=1000, window="local_map")),
     ]
+    empty_ms = time_call(lambda: w2.empty_launch(dev), {})
+    print(f"phase1 empty kernel through the same ctypes launch: {empty_ms:.4f} ms", flush=True)
     rng = np.random.default_rng(0)
-    rows, max_err = [], 0
+    rows, max_err = {}, 0
     for name, spec in cases:
         host = make_case(rng, **spec)
         args = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}
@@ -142,12 +222,21 @@ def phase1(dev):
             max_err = max(max_err, err)
             if err:
                 raise AssertionError(f"{name}: {label} differs from the plain version (max {err})")
-        ms = time_call(w2.window_top2, args)
-        plain_ms = time_call(w2.window_top2_reference, args)
-        rows.append((name, ms, plain_ms))
+        bound_ms, bound_by, inside = window_top2_bound(args)
+        # "ms" is the time of a back-to-back wrapper call, which the main
+        # path pays: the wrapper's host side (argument checks, one
+        # allocation, the ctypes call) takes longer than the kernel runs.
+        # "device_ms" is the kernel's time on the device, in a CUDA graph.
+        rows[name] = dict(
+            ms=time_call(w2.window_top2, args), device_ms=time_graph(w2.window_top2, args),
+            plain_ms=time_call(w2.window_top2_reference, args), bound_ms=bound_ms,
+            bound_by=bound_by)
+        r = rows[name]
         print(f"phase1 {name}: kernel == plain on best/idx/second/idx2; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return rows, max_err
+              f"kernel {r['ms']:.4f} ms back to back, {r['device_ms']:.4f} ms as a CUDA graph, "
+              f"plain {r['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({inside} pairs in a window)", flush=True)
+    return rows, max_err, empty_ms
 
 
 def _synthetic():
@@ -207,6 +296,7 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t_steady) * 1000.0
     launches = w2.launches
+    shapes = {"x".join(map(str, k)): v for k, v in sorted(w2.launch_shapes.items())}
 
     poses, stamps = sysm.frame_poses()
     if poses.ndim != 3 or poses.shape[1:] != (3, 4) or not np.isfinite(poses).all():
@@ -219,6 +309,8 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     print(f"{label} frames tracked {len(poses)}/{n}, ATE {ate:.5f} m ({scale}), "
           f"local BA solves {sysm.local_mapping.n_local_ba}, window_top2 launches {launches}, "
           f"final state {sysm.tracking_state()}", flush=True)
+    print(f"{label} window_top2 launches by shape B x Q x T over {n} frames: {json.dumps(shapes)}",
+          flush=True)
     print(f"{label} ms/frame after {warmup} warm-up frames: mean {wall_ms / len(steady):.3f} "
           f"(wall incl. final sync), median {statistics.median(steady):.3f} (host per call)",
           flush=True)
@@ -504,7 +596,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     try:
-        rows, max_err = phase1(dev)
+        rows, max_err, empty_ms = phase1(dev)
         launches = phase2(dev) + phase3(dev) + phase4(dev) + phase5(dev)
         phase6(dev)
     except Exception as e:  # any failed phase fails the run, with its cause
@@ -513,7 +605,8 @@ def main() -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    main_row = next(r for r in rows if r[0] == "local_map_8192x1000")
+    # The local map's search, the largest call of a tracked frame. No
+    # single PyTorch call computes a windowed top-2: no library time.
     print(json.dumps({"kernels": [{
         "name": "window_top2",
         "route": "cuda",
@@ -521,8 +614,9 @@ def main() -> int:
         "replaces": "c_orb_slam_tpu/ops/pallas_match.py:163",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": main_row[1],
-        "plain_ms": main_row[2],
+        **rows["local_map_8192x1000"],
+        "empty_launch_ms": empty_ms,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

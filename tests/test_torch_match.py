@@ -18,7 +18,7 @@ from c_orb_slam_tpu.ops import hamming as jham, match as jmatch, pallas_match
 from c_orb_slam_tpu_torch.ops import hamming as tham, match as tmatch, window_top2 as tw2
 
 # Input generators shared with the GPU tests (a module free of jax).
-from test_torch_cuda import SEARCH_CASES, _desc, _t, _window_case
+from test_torch_cuda import EDGE_CASES, SEARCH_CASES, _desc, _t, _window_case
 
 
 def test_pack_unpack_and_popcount_match_jax():
@@ -96,9 +96,9 @@ def test_epipolar_mask_matches_jax():
 
 
 @pytest.mark.parametrize("nn_ratio", [1.0, 0.8])
-@pytest.mark.parametrize("case", sorted(SEARCH_CASES))
+@pytest.mark.parametrize("case", sorted(SEARCH_CASES) + sorted(EDGE_CASES))
 def test_search_by_projection_matches_jax_xla_branch(case, nn_ratio):
-    c = _window_case(7, **SEARCH_CASES[case])
+    c = _window_case(7, **{**SEARCH_CASES, **EDGE_CASES}[case])
     order = ("q_uv", "q_radius", "q_desc", "q_valid", "t_xy", "t_octave", "t_desc",
              "t_valid", "q_lo", "q_hi")
     kw = dict(max_dist=100, nn_ratio=nn_ratio)
