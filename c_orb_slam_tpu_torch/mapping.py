@@ -12,7 +12,6 @@ Single device only: the JAX package's multi-device local BA
 
 from __future__ import annotations
 
-import time
 
 import numpy as np
 import torch
@@ -31,6 +30,9 @@ NOT_READY = object()
 
 # How many frames an apply stage may defer before it blocks anyway.
 _MAX_WAITS = 3
+
+# Mapping stages run per tracked frame (times 1 + the queue's length).
+_STAGE_BUDGET = 4
 
 # Max new-point candidates kept per neighbour pair (readback compaction).
 TRI_COMPACT_K = 384
@@ -163,16 +165,20 @@ class LocalMapping:
         self.sf = np.asarray(cfg.orb.scale_factors(), np.float32)
         self._sigma2_dev = to_device(self.device, self.sigma2)
         self._sf_dev = to_device(self.device, self.sf)
-        # Apply halves defer (NOT_READY) until their readback lands. On
-        # the CPU each defers exactly one frame and the per-frame budget
-        # counts stages, not wall-clock ms, so mapping progress does not
-        # depend on machine load (mapping.py:275-289 of the JAX package).
-        cpu = self.device.type == "cpu"
-        self._fixed_defer = cpu
-        self._stage_budget = 4 if cpu else None
+        # Apply halves defer (NOT_READY) until their readback lands; on
+        # the CPU each defers exactly one frame, so mapping progress does
+        # not depend on machine load (mapping.py:275-282 of the JAX
+        # package).
+        self._fixed_defer = self.device.type == "cpu"
         self.queue: list[int] = []
         self._stages: list = []
+        self.on_keyframe_done = None  # callback(kf) -> feeds LoopClosing
         self.metrics = None  # optional Metrics registry (set by System)
+        # Set by LoopClosing for the staged-correction window: keyframes
+        # queue but no stage runs, so the map topology is frozen while
+        # the essential graph solves (reference: RequestStop/Release,
+        # LoopClosing.cc:408,582).
+        self.paused = False
         self._pending_tri = self._pending_fuse = self._pending_ba = None
         self._waits = {"tri": 0, "fuse": 0, "ba": 0}
         self.n_local_ba = 0  # local BA solves applied
@@ -223,15 +229,21 @@ class LocalMapping:
     def queue_len(self) -> int:
         return len(self.queue) + (1 if self._stages else 0)
 
-    def step(self, budget_ms: float = 6.0):
-        """Run mapping stages under a per-frame budget (wall clock on a
-        card, a stage count on the CPU), scaled with queue depth."""
-        q = len(self.queue)
-        if q:
-            budget_ms = min(budget_ms * (1 + q), 40.0)
-        stage_budget = None if self._stage_budget is None else self._stage_budget * (1 + q)
+    def step(self):
+        """Run mapping stages under a per-frame budget of _STAGE_BUDGET
+        stages, scaled with queue depth. The JAX package counts stages on
+        the CPU only and gives an accelerator 6 ms of wall clock a frame.
+        The port's frame is bound by the host on the GPU as well, and 6
+        ms of its 300 ms frame admits one stage: on the H100 the mapper
+        then fell behind by a share that followed the host's load, and
+        the 240-frame stereo orbit ended between 0.05 m ATE and a lost
+        track from one run to the next; counted in stages it mapped twice
+        the keyframes in the same ms/frame and ended at 0.01-0.04 m
+        (PERF.md §6)."""
+        if self.paused:
+            return
+        stage_budget = _STAGE_BUDGET * (1 + len(self.queue))
         n_stages = 0
-        t_start = time.perf_counter()
         while True:
             if not self._stages:
                 if not self.queue:
@@ -257,15 +269,13 @@ class LocalMapping:
                 return
             self._stages.pop(0)
             n_stages += 1
-            if stage_budget is not None:
-                if n_stages >= stage_budget:
-                    return
-            elif (time.perf_counter() - t_start) * 1000.0 > budget_ms:
+            if n_stages >= stage_budget:
                 return
 
     def drain(self):
-        """Run the pipeline to empty (shutdown/reset barrier)."""
-        while self.queue or self._stages:
+        """Run the pipeline to empty (shutdown/reset/loop-closing barrier).
+        A no-op while paused: the correction window owns the map."""
+        while not self.paused and (self.queue or self._stages):
             self.step()
 
     def _ba_dispatch_if_ready(self, kf: int):
@@ -275,6 +285,8 @@ class LocalMapping:
     def _finish_keyframe(self, kf: int):
         self._cull_keyframes(kf)
         self.map.big_change_idx += 1
+        if self.on_keyframe_done is not None and self.map.kf_valid[kf]:
+            self.on_keyframe_done(kf)
 
     def _not_ready(self, stage: str, fut) -> bool:
         """Whether an apply half should wait for its readback another

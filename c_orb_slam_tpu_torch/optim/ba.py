@@ -1,15 +1,18 @@
-"""Bundle adjustment: Levenberg-Marquardt with a dense Schur complement.
+"""Bundle adjustment: Levenberg-Marquardt on the Schur complement.
 
-Counterpart of the dense-Schur path of c_orb_slam_tpu/optim/ba.py, the
-one local BA runs (LocalMapping._solve_local_ba; reference:
-Optimizer.cc:453-778 LocalBundleAdjustment and g2o's block_solver.hpp
-Schur solve). The camera-point graph is a flat observation list
-(obs_cam, obs_pt); one LM iteration is residuals/Jacobians ->
-per-camera and per-point normal blocks (index_add) -> the reduced camera
-system S = Hcc - W Hpp^-1 Wᵀ formed densely and solved by Cholesky ->
-point back-substitution. Fixed cameras get zero Jacobians; invalid slots
-are masked. The implicit-Schur PCG path the JAX package keeps for global
-BA is not ported (ROADMAP.md queue 1: loop path).
+Counterpart of c_orb_slam_tpu/optim/ba.py (reference: Optimizer.cc:49
+BundleAdjustment, :453-778 LocalBundleAdjustment and g2o's
+block_solver.hpp Schur solve). The camera-point graph is a flat
+observation list (obs_cam, obs_pt); one LM iteration is
+residuals/Jacobians -> per-camera and per-point normal blocks (index_add)
+-> the reduced camera system S = Hcc - W Hpp^-1 Wᵀ -> point
+back-substitution. Two routes solve the reduced system, chosen by
+``schur``: "dense" forms S and solves it by Cholesky (local BA, small
+C); "pcg" never forms S or W and runs preconditioned conjugate gradients
+on the implicit matvec S·x = Hcc·x − W·Hpp⁻¹·Wᵀ·x, two gathers and two
+index_adds an application (global BA, where the dense W would not fit).
+``schur`` defaults to "dense" here (the JAX package defaults to "pcg").
+Fixed cameras get zero Jacobians; invalid slots are masked.
 """
 
 from __future__ import annotations
@@ -148,12 +151,77 @@ def _solve_cameras_dense(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam
     return dc * free_cam[:, None]
 
 
-def ba_iteration(p: BAProblem, lm_lambda, use_huber, chi2_mono, chi2_stereo):
+def _w_times(p: BAProblem, Jc, Jp, w, y):
+    """W @ y for per-point y (P, 3) -> (C, 6), without forming W."""
+    s = (Jp @ y[p.obs_pt.long()][..., None])[..., 0] * w[:, None]  # (O, 3)
+    return _segment_sum((Jc.transpose(1, 2) @ s[..., None])[..., 0], p.obs_cam, p.cam_T.shape[0])
+
+
+def _wt_times(p: BAProblem, Jc, Jp, w, x):
+    """Wᵀ @ x for per-camera x (C, 6) -> (P, 3), without forming W."""
+    u = (Jc @ x[p.obs_cam.long()][..., None])[..., 0] * w[:, None]  # (O, 3)
+    return _segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], p.obs_pt, p.points.shape[0])
+
+
+def _schur_matvec(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, x, free_cam):
+    """S @ x without materializing S. x: (C, 6)."""
+    x = x * free_cam[:, None]
+    hx = (Hcc @ x[..., None])[..., 0]
+    y = (Hpp_inv @ _wt_times(p, Jc, Jp, w, x)[..., None])[..., 0]
+    return (hx - _w_times(p, Jc, Jp, w, y)) * free_cam[:, None]
+
+
+def _pcg(matvec, precond, b, iters: int):
+    """Fixed-iteration preconditioned conjugate gradients."""
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    d = z
+    rz = (r * z).sum()
+    for _ in range(iters):
+        Ad = matvec(d)
+        alpha = rz / torch.clamp((d * Ad).sum(), min=1e-20)
+        x = x + alpha * d
+        r = r - alpha * Ad
+        z = precond(r)
+        rz_new = (r * z).sum()
+        beta = rz_new / torch.clamp(rz, min=1e-20)
+        d = z + beta * d
+        rz = rz_new
+    return x
+
+
+def _solve_cameras_pcg(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam, pcg_iters):
+    """PCG on the implicit Schur system, block-Jacobi (Hcc^-1)
+    preconditioner. Returns dc (C, 6)."""
+    # Schur RHS: -(gc - W Hpp^-1 gp)
+    y = (Hpp_inv @ gp[..., None])[..., 0]
+    rhs = -(gc - _w_times(p, Jc, Jp, w, y)) * free_cam[:, None]
+    Hcc_inv = torch.linalg.inv(Hcc)
+
+    def matvec(x):
+        return _schur_matvec(p, Jc, Jp, w, Hcc, Hpp_inv, x, free_cam)
+
+    def precond(x):
+        return (Hcc_inv @ x[..., None])[..., 0] * free_cam[:, None]
+
+    return _pcg(matvec, precond, rhs, pcg_iters)
+
+
+def ba_iteration(
+    p: BAProblem, lm_lambda, use_huber, chi2_mono, chi2_stereo,
+    pcg_iters: int = 40, schur: str = "dense",
+):
     """One damped GN step. Returns (new_cam_T, new_points, dc, dp)."""
     r, Jc, Jp, w, _ = _obs_terms(p, p.cam_T, p.points, use_huber, chi2_mono, chi2_stereo)
     Hcc, Hpp_inv, gc, gp = _assemble(p, r, Jc, Jp, w, lm_lambda)
     free_cam = (p.cam_valid & ~p.cam_fixed).to(r.dtype)
-    dc = _solve_cameras_dense(p, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam)
+    if schur == "dense":
+        dc = _solve_cameras_dense(p, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam)
+    else:
+        dc = _solve_cameras_pcg(
+            p, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam, pcg_iters
+        )
     # dp = Hpp^-1 (-gp - Wᵀ dc)
     u = (Jc @ dc[p.obs_cam.long()][..., None])[..., 0] * w[:, None]
     Wt_dc = _segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], p.obs_pt, p.points.shape[0])
@@ -191,10 +259,24 @@ def sort_by_point(p: BAProblem) -> BAProblem:
     )
 
 
-def lm_step(p: BAProblem, lam, err, use_huber=True, chi2_mono=5.991, chi2_stereo=7.815):
+def stage_error(p: BAProblem, use_huber=True, chi2_mono=5.991, chi2_stereo=7.815):
+    """Initial total error for an LM stage (pairs with lm_step)."""
+    return _total_error(p, p.cam_T, p.points, use_huber, chi2_mono, chi2_stereo)
+
+
+def lm_step(
+    p: BAProblem, lam, err, use_huber=True, chi2_mono=5.991, chi2_stereo=7.815,
+    pcg_iters: int = 40, schur: str = "dense",
+):
     """ONE damped LM iteration with accept/reject, on device (no
-    readback). Returns (cam_T, points, lam, err)."""
-    new_T, new_pts, _, _ = ba_iteration(p, lam, use_huber, chi2_mono, chi2_stereo)
+    readback): the incremental global BA dispatches one of these per
+    tracked frame instead of a single monolithic solve, so tracking
+    interleaves with the solve on the device — the functional analog of
+    the reference's background GBA thread (LoopClosing.cc:645-749).
+    Returns (cam_T, points, lam, err)."""
+    new_T, new_pts, _, _ = ba_iteration(
+        p, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters, schur
+    )
     new_err = _total_error(p, new_T, new_pts, use_huber, chi2_mono, chi2_stereo)
     accept = new_err < err
     return (
@@ -212,13 +294,17 @@ def optimize(
     chi2_mono: float = 5.991,
     chi2_stereo: float = 7.815,
     lm_lambda0: float = 1e-4,
+    pcg_iters: int = 40,
+    schur: str = "dense",
 ):
     """LM loop with accept/reject damping. Returns (cam_T, points)."""
     p = sort_by_point(p)
     err = _total_error(p, p.cam_T, p.points, use_huber, chi2_mono, chi2_stereo)
     lam = torch.tensor(lm_lambda0, dtype=torch.float32, device=p.points.device)
     for _ in range(iters):
-        cam_T, points, lam, err = lm_step(p, lam, err, use_huber, chi2_mono, chi2_stereo)
+        cam_T, points, lam, err = lm_step(
+            p, lam, err, use_huber, chi2_mono, chi2_stereo, pcg_iters, schur
+        )
         p = p._replace(cam_T=cam_T, points=points)
     return p.cam_T, p.points
 
@@ -240,16 +326,20 @@ def bundle_adjust(
     iters_second: int = 10,
     chi2_mono: float = 5.991,
     chi2_stereo: float = 7.815,
+    pcg_iters: int = 40,
+    schur: str = "dense",
 ) -> BAResult:
     """Two-stage BA with outlier re-classification between stages
     (reference: Optimizer.cc:659-709 LocalBundleAdjustment flow)."""
     cam_T, points = optimize(
-        p, iters=iters_first, use_huber=True, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo
+        p, iters=iters_first, use_huber=True, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
+        pcg_iters=pcg_iters, schur=schur,
     )
     p = p._replace(cam_T=cam_T, points=points)
     p = p._replace(obs_valid=classify_inliers(p, chi2_mono, chi2_stereo))
     cam_T, points = optimize(
-        p, iters=iters_second, use_huber=False, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo
+        p, iters=iters_second, use_huber=False, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
+        pcg_iters=pcg_iters, schur=schur,
     )
     p = p._replace(cam_T=cam_T, points=points)
     inlier = classify_inliers(p, chi2_mono, chi2_stereo)

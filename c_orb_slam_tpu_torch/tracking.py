@@ -977,6 +977,11 @@ class Tracking:
         if len(self.map.live_keyframes()) == 0:
             return False
         mapper = getattr(self, "mapper", None)
+        if mapper is not None and mapper.paused:
+            # A loop correction's staged window froze the map topology
+            # (reference: NeedNewKeyFrame bails while LocalMapping is
+            # stopped by a loop closure, Tracking.cc:992-996).
+            return False
         idle = mapper.queue_len() == 0 if mapper is not None else True
         frames = self.frame_id - self.last_kf_frame_id
         ref_matches = (self.map.kf_mp[self.ref_kf] >= 0).sum() if self.ref_kf >= 0 else 0

@@ -133,3 +133,43 @@ def test_search_by_projection_launches_the_kernel(cuda):
     on_cpu = match.search_by_projection(*(_t(c[k]) for k in order), nn_ratio=0.8)
     for g, r in zip(on_gpu, on_cpu):
         np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+
+
+def test_fetch_done_polls_without_waiting(cuda):
+    """The staged jobs poll Fetch.done() every frame: it must answer from
+    an event query while the device is still busy, and result() must wait."""
+    from c_orb_slam_tpu_torch.utils.host import fetch_async
+
+    a = torch.randn(4096, 4096, device=cuda)
+    torch.cuda.synchronize()
+    x = a
+    for _ in range(60):  # a few hundred ms of queued device work
+        x = x @ a
+        x = x / x.abs().max()
+    fut = fetch_async(x[:4, :4])
+    early = fut.done()
+    got = fut.result()
+    assert fut.done()
+    assert not early, "done() waited for the device, or the work was too short to tell"
+    np.testing.assert_array_equal(got, x[:4, :4].cpu().numpy())
+
+
+def test_staged_loop_correction_drains_on_the_card(cuda):
+    """tests/test_torch_loop_correction.py's tiny stereo system on the
+    card: a correction armed by hand runs fuse, essential graph and
+    global BA through fetch_async and releases the mapper."""
+    from test_torch_loop_correction import _arm_correction, _tiny_system
+
+    sysm = _tiny_system(device=cuda)
+    lc = _arm_correction(sysm)
+    assert lc.correction_job is not None and sysm.local_mapping.paused
+    n = 0
+    while not lc.idle():
+        lc.advance_background()
+        n += 1
+        assert n < 500, "the staged correction never finished"
+    assert n >= sysm.cfg.optimizer.essential_graph_its + 2 * sysm.cfg.optimizer.global_ba_its
+    assert lc.n_gba_applied == 1 and not sysm.local_mapping.paused
+    sysm.shutdown()
+    assert np.isfinite(sysm.map.kf_pose[sysm.map.live_keyframes()]).all()
+    assert np.isfinite(sysm.map.pt_xyz[sysm.map.live_points()]).all()

@@ -84,9 +84,13 @@ def test_rgbd_slice_matches_jax(sequence):
 
 def test_unported_entry_points_raise():
     cfg = _cfg(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchSystem(cfg, "cpu")  # loop closing defaults on, as in the JAX API
+    # Loop closing defaults on, as in the JAX API, and is ported: the
+    # constructor loads the port's own vocabulary.
+    with_loop = TorchSystem(cfg, "cpu")
+    assert with_loop.loop_closing.voc.n_words == 10**5
+    assert with_loop.tracker.reloc_provider is with_loop.loop_closing
     sysm = TorchSystem(cfg, "cpu", enable_loop_closing=False)
+    assert sysm.loop_closing is None
     for call in (sysm.activate_localization_mode, lambda: sysm.save_map("unused.npz")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
