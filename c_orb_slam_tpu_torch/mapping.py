@@ -346,12 +346,11 @@ class LocalMapping:
         free1 = mp.kf_kp_valid[kf] & (mp.kf_mp[kf] < 0)
         if free1.sum() < 5:
             return
-        P = n_neigh  # fixed pair capacity
-        ks = (k2s + [k2s[-1]] * P)[:P]
-        pair_valid = np.zeros(P, bool)
-        pair_valid[: min(len(k2s), P)] = True
+        # One batch row per neighbour (the JAX package pads the batch to
+        # n_neigh rows, a static-shape padding whose rows are masked).
+        ks = k2s
         free2 = mp.kf_kp_valid[ks] & (mp.kf_mp[ks] < 0)
-        pair_valid &= free2.sum(axis=1) >= 5
+        pair_valid = free2.sum(axis=1) >= 5
         if not pair_valid.any():
             return
         dev = mp.device
@@ -447,18 +446,16 @@ class LocalMapping:
             pts_per_pair.append(pts)
         if not live_pairs:
             return
-        # Fixed pair capacity; pairs beyond it are dropped (the strongest,
-        # in covisibility order, survive).
+        # At most fuse_max_pairs pairs; pairs beyond it are dropped (the
+        # strongest, in covisibility order, survive). The batch holds the
+        # live pairs only: the JAX package pads it to the cap, a
+        # static-shape padding whose rows are all masked.
         P = self.cfg.capacity.fuse_max_pairs
-        n_real = min(len(live_pairs), P)
         if len(live_pairs) > P:
             if self.metrics is not None:
                 self.metrics.count("fuse_pairs_dropped", len(live_pairs) - P)
             live_pairs, pts_per_pair = live_pairs[:P], pts_per_pair[:P]
-        while len(live_pairs) < P:
-            live_pairs.append(live_pairs[-1])
-            pts_per_pair.append(np.full(cap, -1, np.int64))
-        pts_arr = np.stack(pts_per_pair)  # (P, cap)
+        pts_arr = np.stack(pts_per_pair)  # (len(live_pairs), cap)
         dev = mp.device
         dev.flush()
         dsts_d, pts_idx_d = to_device(
@@ -470,22 +467,21 @@ class LocalMapping:
             dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
             dev.pt_desc, dev.pt_valid, self.K, self._sf_dev,
         )
-        self._pending_fuse = (kf, live_pairs, pts_arr, n_real, fetch_async(*result))
+        self._pending_fuse = (kf, live_pairs, pts_arr, fetch_async(*result))
 
     def _fuse_apply(self):
         if self._pending_fuse is None:
             return
         if self._not_ready("fuse", self._pending_fuse[-1]):
             return NOT_READY
-        kf, live_pairs, pts_arr, n_real, fut = self._pending_fuse
+        kf, live_pairs, pts_arr, fut = self._pending_fuse
         self._pending_fuse = None
         mp = self.map
         src_rows, m_idx, m_valid, n_valid = fut.result()
-        dropped = int(np.maximum(n_valid[:n_real] - m_valid.shape[1], 0).sum())
+        dropped = int(np.maximum(n_valid - m_valid.shape[1], 0).sum())
         if dropped and self.metrics is not None:
             self.metrics.count("fuse_compact_dropped", dropped)
-        for pi in range(n_real):
-            _, dst = live_pairs[pi]
+        for pi, (_, dst) in enumerate(live_pairs):
             pts = pts_arr[pi]
             rows = src_rows[pi]
             sel = np.nonzero(m_valid[pi] & (pts[rows] >= 0))[0]

@@ -6,11 +6,11 @@ TrackRGBD :116-280, Reset :295, Shutdown :301, trajectory savers
 keyframe insertion. Every tensor lives on the ``device`` given to the
 constructor.
 
-Ported: monocular, stereo and RGB-D tracking with relocalization, and
-loop closing (BoW place recognition, Sim3 alignment, staged correction,
-essential graph, background global BA) on one device. Localization mode
-and map checkpoints raise NotImplementedError naming their ROADMAP.md
-item.
+Ported: monocular, stereo and RGB-D tracking with relocalization, loop
+closing (BoW place recognition, Sim3 alignment, staged correction,
+essential graph, background global BA) on one device, localization mode
+(System.cc:127-145), and map checkpoints (io/checkpoint.py) with
+``System.from_saved_map``.
 """
 
 from __future__ import annotations
@@ -25,20 +25,22 @@ from c_orb_slam_tpu_torch.bow import vocab as vocab_mod
 from c_orb_slam_tpu_torch.config import SlamConfig, Sensor
 from c_orb_slam_tpu_torch.frontend import frame as frame_mod
 from c_orb_slam_tpu_torch.geometry import np_se3
-from c_orb_slam_tpu_torch.io import trajectory as traj_io
+from c_orb_slam_tpu_torch.io import checkpoint, trajectory as traj_io
 from c_orb_slam_tpu_torch.loop_closing import LoopClosing
 from c_orb_slam_tpu_torch.mapping import LocalMapping
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.tracking import Tracking, TrackState
+from c_orb_slam_tpu_torch.utils.host import fetch
 from c_orb_slam_tpu_torch.utils.metrics import Metrics
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} not ported yet (ROADMAP.md queue 1: {item})")
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array or a tensor on any device -> a tensor on `device`."""
+    return (a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))).to(device)
 
 
 def _to_gray_f32(image, device: torch.device) -> torch.Tensor:
-    img = torch.as_tensor(np.asarray(image)).to(device)
+    img = _as_tensor(image, device)
     if img.dim() == 3:  # (H, W, 3) -> grayscale (Rec.601 like cvtColor)
         img = 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
     return img.to(torch.float32)
@@ -64,11 +66,13 @@ class System:
                 else:
                     vocabulary = vocab_mod.load(path, device=self.device)
         self._build_pipeline(MapState(cfg, compute_device=self.device), vocabulary)
+        self.localization_only = False
 
     def _build_pipeline(self, map_state: MapState, vocabulary):
         """Construct tracker, mapper and loop closer over `map_state` and
-        wire their cross-references (shared by __init__ and reset(), so
-        no path can drop the wiring of System.cc:106-113)."""
+        wire their cross-references (shared by __init__, reset() and
+        from_saved_map(), so no path can drop the wiring of
+        System.cc:106-113)."""
         self.map = map_state
         self.tracker = Tracking(self.cfg, self.map, self.device)
         self.local_mapping = LocalMapping(self.cfg, self.map, self.device)
@@ -111,7 +115,7 @@ class System:
         with self.metrics.stage("frame_build"):
             f = frame_mod.build_rgbd(
                 _to_gray_f32(image, self.device),
-                torch.as_tensor(np.asarray(depth, np.float32)).to(self.device),
+                _as_tensor(depth, self.device).to(torch.float32),
                 self.cfg,
             )
         return self._track(f, timestamp)
@@ -130,7 +134,34 @@ class System:
         new_kfs = self.map.added_kfs
         self.map.added_kfs = []
         made_kf = bool(new_kfs)
-        if made_kf:
+        if not self.localization_only:
+            self._map_step(new_kfs)
+        elif self.loop_closing is not None and (
+            self.loop_closing.sim3_job is not None
+            or self.loop_closing.correction_job is not None
+            or self.loop_closing.gba_job is not None
+        ):
+            # Localization mode stops mapping and new loop detection, but
+            # a Sim3, correction or global-BA job already in flight at the
+            # switch still advances (the reference keeps its LoopClosing
+            # thread running, System.cc:127-135): it mutates the map only.
+            with self.metrics.stage("loop_stage"):
+                self.loop_closing.advance_background()
+        self.metrics.end_frame(
+            frame_id=self.tracker.frame_id,
+            timestamp=timestamp,
+            state=self.tracker.state,
+            n_inliers=self.tracker.current_inliers,
+            n_keyframes=len(self.map.live_keyframes()),
+            n_points=int(self.map.pt_valid.sum()),
+            is_keyframe=made_kf,
+            total_ms=(time.perf_counter() - t0) * 1000.0,
+        )
+        return pose
+
+    def _map_step(self, new_kfs: list):
+        """Route new keyframes and run one mapping and loop slice."""
+        if new_kfs:
             self.metrics.count("keyframes_created", len(new_kfs))
             for k in new_kfs:
                 if self.map.n_added_keyframes > 2:
@@ -162,17 +193,6 @@ class System:
                 # One chunk of background work (Sim3 stage, correction
                 # chunk or global-BA step) per frame.
                 self.loop_closing.advance_background()
-        self.metrics.end_frame(
-            frame_id=self.tracker.frame_id,
-            timestamp=timestamp,
-            state=self.tracker.state,
-            n_inliers=self.tracker.current_inliers,
-            n_keyframes=len(self.map.live_keyframes()),
-            n_points=int(self.map.pt_valid.sum()),
-            is_keyframe=made_kf,
-            total_ms=(time.perf_counter() - t0) * 1000.0,
-        )
-        return pose
 
     def _on_mapping_done(self, kf: int):
         if self.loop_closing is not None:
@@ -198,7 +218,14 @@ class System:
 
     # ------------------------------------------------------------------
     def activate_localization_mode(self):
-        _not_ported("localization mode", "product surface")
+        """Reference: System::ActivateLocalizationMode (System.cc:127-135):
+        mapping stops; tracking goes on against the frozen map."""
+        self.localization_only = True
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.only_tracking = False
 
     def reset(self):
         """Reference: System::Reset -> Tracking::Reset (Tracking.cc:1504)."""
@@ -242,6 +269,28 @@ class System:
     def tracking_state(self) -> int:
         return self.tracker.state
 
+    def tracked_map_points(self) -> np.ndarray:
+        """(M, 3) world positions of the map points matched in the most
+        recent frame (reference: System::GetTrackedMapPoints,
+        System.cc:295; positions here, where the reference hands out
+        pointers)."""
+        self.tracker.flush_pending()
+        mp = self.tracker.last_mp
+        if mp is None:
+            return np.zeros((0, 3), np.float32)
+        ids = mp[mp >= 0]
+        return self.map.pt_xyz[ids[self.map.pt_valid[ids]]].copy()
+
+    def tracked_keypoints(self) -> np.ndarray:
+        """(N, 2) undistorted keypoints of the most recent frame
+        (reference: System::GetTrackedKeyPointsUn, System.cc:300)."""
+        self.tracker.flush_pending()
+        f = self.tracker.last_frame
+        if f is None:
+            return np.zeros((0, 2), np.float32)
+        xy, valid = fetch(f.xy, f.valid)
+        return xy[valid]
+
     def frame_poses(self) -> tuple[np.ndarray, list]:
         """(F, 3, 4) per-frame Tcw for tracked frames, with timestamps,
         rebuilt as T_cr · T_rw from each frame's reference keyframe's
@@ -268,7 +317,36 @@ class System:
         return self.map.kf_pose[self.map.live_keyframes()]
 
     def save_map(self, path: str):
-        _not_ported("map checkpoints", "product surface")
+        """Write the map and the vocabulary to one npz (the reference's
+        SaveMap TODO, System.h:115-117), after draining every pipeline so
+        the snapshot is fully processed. The JAX package loads it too."""
+        self._drain_all()
+        checkpoint.save_map(path, self.map, self.loop_closing.voc if self.loop_closing else None)
+
+    @classmethod
+    def from_saved_map(cls, path: str, cfg: SlamConfig, device,
+                       localization_only: bool = True,
+                       enable_loop_closing: bool = True) -> "System":
+        """Start from a stored map (either package's npz): the first frame
+        relocalizes into it, then tracking goes on, in localization mode
+        unless asked otherwise. The file's vocabulary wins over the one
+        the constructor loaded; its keyframes are indexed for BoW
+        relocalization. With loop closing off the candidates are the 10
+        newest keyframes."""
+        sysm = cls(cfg, device, enable_loop_closing=enable_loop_closing)
+        m, voc = checkpoint.load_map(path, cfg, sysm.device)
+        if sysm.loop_closing is not None and voc is None:
+            voc = sysm.loop_closing.voc
+        sysm._build_pipeline(m, voc)
+        live = m.live_keyframes()
+        if sysm.loop_closing is not None and voc is not None:
+            for k in live:
+                sysm.loop_closing._index_keyframe(int(k))
+        sysm.tracker.ref_kf = int(live[np.argmax(m.kf_serial[live])]) if len(live) else -1
+        sysm.tracker.state = TrackState.LOST  # relocalize on the first frame
+        if localization_only:
+            sysm.activate_localization_mode()
+        return sysm
 
     def save_trajectory_tum(self, path: str):
         poses, stamps = self.frame_poses()

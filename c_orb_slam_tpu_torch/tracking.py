@@ -7,9 +7,9 @@ dispatching device steps written as plain tensor code: frustum culling,
 projection matching on the window_top2 kernel, motion-only Gauss-Newton.
 
 Ported: monocular (two-view RANSAC + initial BA) and depth-initialised
-(stereo/RGB-D) tracking, the pipelined fused step, and relocalization
-(PnP RANSAC against recent keyframes). Localization mode with VO points
-is not ported yet (ROADMAP.md queue 1: product surface).
+(stereo/RGB-D) tracking, the pipelined fused step, relocalization (PnP
+RANSAC against BoW and recent keyframes), and localization mode with
+visual-odometry points (reference: Tracking.cc:283-361, 801-865).
 """
 
 from __future__ import annotations
@@ -153,17 +153,24 @@ def _local_map_step(cfg: SlamConfig, T0, local_idx, pt_fresh, seed_mp, PT_xyz,
 
 
 def _full_track_step(cfg: SlamConfig, T_pred, last_mp, last_octave, last_desc,
-                     local_idx, PT_xyz, PT_normal, PT_mind, PT_maxd, PT_desc,
-                     PT_valid, f, K, inv_sigma2_levels, sf, radius_mult: float = 1.0):
+                     vo_xyz, vo_valid, local_idx, PT_xyz, PT_normal, PT_mind, PT_maxd,
+                     PT_desc, PT_valid, f, K, inv_sigma2_levels, sf,
+                     radius_mult: float = 1.0):
     """The whole per-frame tracking compute, queued on the device with no
     readback: motion-model projection matching -> pose GN -> frustum cull
     of the covisibility-local points -> projection matching -> pose GN
     (reference: Tracking.cc:313 + :930). Map data is read from the
-    device-resident mirror by index (last_mp, local_idx)."""
+    device-resident mirror by index (last_mp, local_idx).
+
+    Visual-odometry rows (localization mode, reference Tracking.cc:801-865):
+    a row with vo_valid takes the world position vo_xyz and the last
+    frame's descriptor instead of map data; its last_mp is -1, so it
+    constrains the pose but never binds to a map point."""
     n_levels = cfg.orb.n_levels
     safe_q = torch.clamp(last_mp, min=0).long()
-    q_xyz, q_desc = PT_xyz[safe_q], PT_desc[safe_q]
-    q_valid = (last_mp >= 0) & PT_valid[safe_q]
+    q_xyz = torch.where(vo_valid[:, None], vo_xyz, PT_xyz[safe_q])
+    q_desc = torch.where(vo_valid[:, None], last_desc, PT_desc[safe_q])
+    q_valid = ((last_mp >= 0) & PT_valid[safe_q]) | vo_valid
     safe_l = torch.clamp(local_idx, min=0).long()
     pt_xyz, pt_desc = PT_xyz[safe_l], PT_desc[safe_l]
     pt_valid = (local_idx >= 0) & PT_valid[safe_l]
@@ -251,6 +258,13 @@ class Tracking:
         self.map = mapstate
         self.device = torch.device(device)
         self.state = TrackState.NOT_INITIALIZED
+        # Localization only: track against a frozen map, never insert
+        # keyframes (reference: Tracking.mbOnlyTracking, Tracking.cc:272).
+        self.only_tracking = False
+        # In localization mode: few map matches, the pose rests on the
+        # visual-odometry rows (reference: mbVO, Tracking.cc:283-361).
+        self._vo_mode = False
+        self._vo_zeros = None  # cached device zeros for the VO rows
         self.K = camera.intrinsics_array(cfg.camera, self.device)
         self.K_host = self.K.cpu().numpy()
         self.sf = np.asarray(cfg.orb.scale_factors(), np.float32)
@@ -340,11 +354,21 @@ class Tracking:
             self._log_frame()
             return self.last_pose
 
-        if self.state == TrackState.OK and self.velocity is not None:
+        if (
+            self.state == TrackState.OK
+            and self.velocity is not None
+            and not (self.only_tracking and self._vo_mode)
+        ):
             self._check_replaced_last()
             disp = self._fused_dispatch(f)
             if disp is not None:
                 self._pending.append((f, disp, self.current_timestamp))
+                if self.only_tracking:
+                    # Localization mode is lock-step: the caller takes the
+                    # returned pose as this frame's (the reference's
+                    # TrackMonocular contract), so wait out the readback.
+                    self.flush_pending()
+                    return self.last_pose if self.state == TrackState.OK else None
                 return self.last_pose
 
         # Sync path: drain in-flight frames first.
@@ -395,6 +419,14 @@ class Tracking:
                     fused_done = ok
             if not ok:
                 ok, pose, cur_mp = self._track_reference_kf(f)
+        if ok and self.only_tracking and self._vo_mode:
+            # VO mode: tracking holds on temporal points; keep trying to
+            # relocalize into the map (reference: Tracking.cc:296-330).
+            ok_r, pose_r, mp_r = self._relocalize(f)
+            if ok_r:
+                pose, cur_mp = pose_r, mp_r
+                self._vo_mode = False
+                self.last_reloc_frame_id = self.frame_id
         if self.state == TrackState.LOST or not ok:
             ok, pose, cur_mp = self._relocalize(f)
             if ok:
@@ -417,7 +449,7 @@ class Tracking:
                 self.velocity = vel
             self.state = TrackState.OK
             self.last_pose = np.asarray(pose)
-            if self._need_new_keyframe(f, cur_mp):
+            if not self.only_tracking and self._need_new_keyframe(f, cur_mp):
                 self._create_keyframe(f, cur_mp)
                 self.frames_since_kf = 0
             else:
@@ -427,7 +459,7 @@ class Tracking:
             self.velocity = None
             # Lost soon after initialization: request a full reset
             # (reference: Tracking.cc:472-479; System consumes the flag).
-            if len(self.map.live_keyframes()) <= 5:
+            if len(self.map.live_keyframes()) <= 5 and not self.only_tracking:
                 self.request_reset = True
         self.last_frame = f
         self.last_mp = cur_mp
@@ -593,7 +625,7 @@ class Tracking:
             self.frame_id, pose, fh.xy, fh.octave, fh.angle, fh.desc.view(np.uint32),
             fh.valid, ur=fh.ur, depth=fh.depth, timestamp=self.current_timestamp,
         )
-        xyz = self._backproject(fh)
+        xyz = self._backproject(fh.xy, fh.depth)
         cur_mp = np.full(fh.xy.shape[0], -1, np.int64)
         sel = np.nonzero(fh.valid & (fh.depth > 0))[0]
         new_idx = mp.add_points_batch(xyz[sel], fh.desc.view(np.uint32)[sel], k0)
@@ -609,15 +641,11 @@ class Tracking:
         self.frames_since_kf = 0
         mp.big_change_idx += 1
 
-    def _backproject(self, fh) -> np.ndarray:
-        """(N, 3) camera-frame points of a fetched frame's keypoints."""
+    def _backproject(self, xy: np.ndarray, depth: np.ndarray) -> np.ndarray:
+        """(N, 3) camera-frame points of host keypoints xy at `depth`."""
         Kc = self.K_host
         return np.stack(
-            [
-                (fh.xy[:, 0] - Kc[2]) * fh.depth / Kc[0],
-                (fh.xy[:, 1] - Kc[3]) * fh.depth / Kc[1],
-                fh.depth,
-            ],
+            [(xy[:, 0] - Kc[2]) * depth / Kc[0], (xy[:, 1] - Kc[3]) * depth / Kc[1], depth],
             axis=1,
         ).astype(np.float32)
 
@@ -630,7 +658,15 @@ class Tracking:
         the dispatch record for _fused_apply, or None if the frame can't
         take the fused path. The local point set comes from the previous
         frame's covisibility (one frame stale)."""
-        if (self.last_mp >= 0).sum() < 10:
+        vo_xyz_d, vo_valid_d = self._vo_arrays(f.xy.shape[0])
+        n_queries = int((self.last_mp >= 0).sum())
+        if isinstance(vo_valid_d, np.ndarray):
+            # VO rows are queries too: counting them keeps VO mode alive
+            # past the frame that entered it (the JAX package counts map
+            # rows only, so its VO mode ends in LOST one frame later).
+            n_queries += int(vo_valid_d.sum())
+            vo_xyz_d, vo_valid_d = to_device(self.device, vo_xyz_d, vo_valid_d)
+        if n_queries < 10:
             return None
         local_pts = self._local_points(self._local_keyframes(self.last_mp))
         if len(local_pts) == 0:
@@ -666,7 +702,7 @@ class Tracking:
             lag = len(self._pending) + 1
             radius_mult = (1.0, 1.5, 2.0)[min(lag - 1, 2)]
         head_args = (self.cfg, T_pred_d, last_mp_d, self.last_frame.octave,
-                     self.last_frame.desc, local_idx_d)
+                     self.last_frame.desc, vo_xyz_d, vo_valid_d, local_idx_d)
         tail_args = (f, self.K, self.inv_sigma2_levels, self._sf_dev)
         out, chain_pose = _full_track_step(
             *head_args,
@@ -679,6 +715,37 @@ class Tracking:
         # descriptor refresh in _fused_postprocess).
         fut = fetch_async(*out, f.desc)
         return (fut, pts_pad, safe, self.last_mp, (head_args, tail_args))
+
+    def _vo_arrays(self, n_feat: int):
+        """Visual-odometry rows (reference: UpdateLastFrame,
+        Tracking.cc:801-865): in localization mode, stereo and RGB-D input
+        add the last frame's close-depth keypoints that have no map point,
+        in world coordinates, to the motion model's queries, so tracking
+        survives outside the mapped region. Their last_mp is -1: they
+        constrain the pose and never create a map association.
+
+        Returns (vo_xyz, vo_valid): host arrays while the rows are active,
+        else cached zero tensors on the device (nothing to upload)."""
+        if (
+            self.only_tracking
+            and self.cfg.sensor != Sensor.MONOCULAR
+            and self.last_pose is not None
+        ):
+            depth, lf_valid, xy = fetch(
+                self.last_frame.depth, self.last_frame.valid, self.last_frame.xy
+            )
+            close = (depth > 0) & (depth < self.cfg.tracking.th_depth * self.cfg.camera.baseline)
+            vo = close & (self.last_mp < 0) & lf_valid
+            if vo.any():
+                xc = self._backproject(xy, depth)
+                Tinv = np_se3.inverse(self.last_pose)
+                return (xc @ Tinv[:, :3].T + Tinv[:, 3]).astype(np.float32), vo
+        if self._vo_zeros is None or self._vo_zeros[0].shape[0] != n_feat:
+            self._vo_zeros = (
+                torch.zeros((n_feat, 3), dtype=torch.float32, device=self.device),
+                torch.zeros(n_feat, dtype=torch.bool, device=self.device),
+            )
+        return self._vo_zeros
 
     def _fused_apply(self, f: frame_mod.FrameData, disp):
         """Steady-state hot path, apply half: one readback + host
@@ -720,13 +787,18 @@ class Tracking:
         found[~inl_feat] = -1
         new_mp[~inl_feat] = -1
         n = int(n2)
+        vo_mode = self.only_tracking and int((new_mp >= 0).sum()) < 10
         recent_reloc = self.frame_id - self.last_reloc_frame_id < int(self.cfg.camera.fps)
         need = (
             self.cfg.tracking.min_inliers_local_map_strict
             if recent_reloc
             else self.cfg.tracking.min_inliers_local_map
         )
-        if n < need:
+        # In VO mode (few map matches: off the mapped region) the pose
+        # rests on the VO rows, so the pose-GN inliers, VO rows included,
+        # decide; the map gate would drop to LOST outside the map
+        # (reference: mbVO, Tracking.cc:283-361).
+        if n < (self.cfg.tracking.min_inliers_pose if vo_mode else need):
             # No map side effects on a rejected pass (the wide retry runs
             # this again); the tracker-local inlier count is updated.
             self.current_inliers = n
@@ -734,13 +806,16 @@ class Tracking:
         self.map.pt_visible[safe[in_view]] += 1
         self.map.pt_found[found[found >= 0]] += 1
         # Per-frame descriptor refresh: an inlier-matched point takes the
-        # current frame's descriptor (see the JAX package).
+        # current frame's descriptor (see the JAX package). Not in
+        # localization mode, where the map stays as it was loaded.
         feat_sel = np.nonzero(new_mp >= 0)[0]
-        if len(feat_sel):
+        if len(feat_sel) and not self.only_tracking:
             pt_sel = new_mp[feat_sel]
             self.map.pt_desc[pt_sel] = np.asarray(f_desc).view(np.uint32)[feat_sel]
             self.map.mark_points_dirty(pt_sel)
         self.current_inliers = n
+        if self.only_tracking:
+            self._vo_mode = vo_mode
         return True, pose2, new_mp
 
     def _track_reference_kf(self, f: frame_mod.FrameData):
@@ -1026,7 +1101,7 @@ class Tracking:
             order = np.argsort(np.where(close, depth, np.inf))
             n_new = min(int(close.sum()), self.cfg.tracking.max_new_stereo_points)
             Tinv = np_se3.inverse(self.last_pose)
-            xyz_w = self._backproject(fh) @ Tinv[:, :3].T + Tinv[:, 3]
+            xyz_w = self._backproject(fh.xy, fh.depth) @ Tinv[:, :3].T + Tinv[:, 3]
             sel_new = order[:n_new]
             new_idx = mp.add_points_batch(xyz_w[sel_new], desc[sel_new], k)
             mp.add_observations_batch(new_idx, k, sel_new)

@@ -7,7 +7,9 @@ Phase 1 builds the window_top2 kernel (csrc/window_top2.cu, nvcc for
 sm_90a) and holds it against its plain PyTorch version on the card, for
 exact equality of all four outputs, at the shapes the main path gives it
 (TUM geometry with 1000 keypoints on 8 levels, KITTI geometry with 2000,
-the loop runs' 800 keypoints on 4 levels) plus unaligned, fully-masked, single-target and tie-heavy cases, the local
+the loop runs' 800 keypoints on 4 levels; the mapper's fuse batches at 32
+pairs, its cap, and at the live counts it launches: 16, 17 and 1) plus
+unaligned, fully-masked, single-target and tie-heavy cases, the local
 map's real window (radius 4-6 px x scale) and the worst case of a kernel
 that culls by window first (every target in every window). It times both
 (CUDA events around 20 back-to-back calls, median of 7: "ms", which is
@@ -47,6 +49,21 @@ after frame 200:
   frames after the loop event (the gates of tests/test_e2e_loop.py);
 - phase 8: monocular, free scale: the same gates on the scale-aligned ATE.
 
+Phase 9 drives the product surface at TUM RGB-D geometry (blob_world(400,
+seed=5), 640x480, 1000 features, 8 levels, DepthMapFactor 5000): it
+writes 60 rendered frames as a TUM tree (8-bit P5 images, 16-bit P5
+depth, rgb.txt and an associations file), requires the native image
+loader's PNM decoder, checks that the depth decodes natively to the values
+written, runs the RGB-D driver (examples/rgbd_tum.py, --device cuda, its
+reads native, PIL refused) over the first 20 frames with --save-map (ATE < 0.05 m on
+the saved TUM trajectory), then System.from_saved_map relocalizes into the
+map and tracks frames 14-59 in localization mode: relocalized on the first
+frames, >= 90% of the mapped frames tracked with ATE < 0.05 m, the map
+unchanged, VO mode on at least 5 frames past the mapped region; one frame
+drawn with FrameDrawer. Where the machine reads PNG (natively or through PIL), the stereo
+KITTI driver runs 30 frames of a rendered KITTI tree (every frame tracked,
+ATE < 0.05 m). It prints which decoders the machine offers.
+
 Exits nonzero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -54,6 +71,7 @@ phase fails. The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -211,6 +229,11 @@ def phase1(dev):
         ("local_map_8192x1000", dict(B=0, Q=8192, T=1000)),
         ("unaligned_200x300", dict(B=0, Q=200, T=300)),
         ("fuse_batch_32x1000x1000", dict(B=32, Q=1000, T=1000)),
+        # The fuse's batch is its live pair count (at most 32): a typical
+        # 16, an odd 17 and a batch of one.
+        ("fuse_live_16x1000x1000", dict(B=16, Q=1000, T=1000)),
+        ("fuse_live_17x1000x1000", dict(B=17, Q=1000, T=1000)),
+        ("fuse_live_1x1000x1000", dict(B=1, Q=1000, T=1000)),
         ("masked_rows_512x1000", dict(B=0, Q=512, T=1000, masked_rows=True)),
         ("single_target_300x1", dict(B=0, Q=300, T=1)),
         ("ties_1000x1000", dict(B=0, Q=1000, T=1000, ties=True)),
@@ -218,6 +241,7 @@ def phase1(dev):
         ("kitti_motion_model_2000x2000", dict(B=0, Q=2000, T=2000, w=1241, h=376)),
         ("kitti_local_map_8192x2000", dict(B=0, Q=8192, T=2000, w=1241, h=376)),
         ("kitti_fuse_batch_32x2000x2000", dict(B=32, Q=2000, T=2000, w=1241, h=376)),
+        ("kitti_fuse_live_16x2000x2000", dict(B=16, Q=2000, T=2000, w=1241, h=376)),
         # The cull's worst case, and the local map's real window.
         ("dense_window_8192x1000", dict(B=0, Q=8192, T=1000, window="all")),
         ("sparse_local_map_8192x1000", dict(B=0, Q=8192, T=1000, window="local_map")),
@@ -227,6 +251,7 @@ def phase1(dev):
         ("loop_sparse_local_map_8192x800", dict(B=0, Q=8192, T=800, levels=4,
                                                 window="local_map")),
         ("loop_fuse_batch_32x800x800", dict(B=32, Q=800, T=800, levels=4)),
+        ("loop_fuse_live_16x800x800", dict(B=16, Q=800, T=800, levels=4)),
     ]
     empty_ms = time_call(lambda: w2.empty_launch(dev), {})
     print(f"phase1 empty kernel through the same ctypes launch: {empty_ms:.4f} ms", flush=True)
@@ -1002,6 +1027,210 @@ def phase8(dev):
     return loop_run("phase8", dev, "mono")
 
 
+TUM_SETTINGS = """%YAML:1.0
+Camera.fx: 500.0
+Camera.fy: 500.0
+Camera.cx: 320.0
+Camera.cy: 240.0
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 100.0
+ThDepth: 35.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+Tracking.minStereoInitPoints: 60
+"""
+PHASE9_MAP, PHASE9_ALL, PHASE9_LOC = 20, 60, 14  # frames mapped, rendered; localization start
+PHASE9_MIN_VO = 5  # frames in VO mode past the mapped region (a CPU run of this phase: all 20)
+
+
+def _image_io() -> dict:
+    """Print and return what this machine offers the image loader: PIL,
+    the libpng / libjpeg headers, g++ and the native build's decoders."""
+    import importlib.util
+    import shutil
+
+    from c_orb_slam_tpu_torch.io.native import loader
+
+    found = {"PIL": importlib.util.find_spec("PIL") is not None,
+             "png.h": os.path.exists("/usr/include/png.h"),
+             "jpeglib.h": os.path.exists("/usr/include/jpeglib.h"),
+             "g++": shutil.which("g++"),
+             "native decoders": loader.native_decoders()}
+    print(f"phase9 image IO on this machine: {json.dumps(found)}; native build: "
+          f"{loader.build_log.strip()[-600:]}", flush=True)
+    return found
+
+
+@contextlib.contextmanager
+def _native_reads_only():
+    """Within it, an image the native build cannot read raises instead of
+    going to PIL: the reads it holds are the native loader's."""
+    from c_orb_slam_tpu_torch.io.native import loader
+
+    def refuse(path, raw=False):
+        raise ImportError("PIL is not used inside this check")
+
+    saved, loader._decode_pil = loader._decode_pil, refuse
+    try:
+        yield
+    finally:
+        loader._decode_pil = saved
+
+
+def phase9(dev):
+    """The product surface at TUM RGB-D geometry: a rendered sequence on
+    disk (8-bit P5 images, 16-bit P5 depth at 5000 per metre, rgb.txt and
+    an associations file) through the RGB-D driver, which saves the map;
+    then System.from_saved_map relocalizes into it and tracks in
+    localization mode over the mapped region and past it, into VO mode;
+    one frame drawn with FrameDrawer; where the machine reads PNG, the
+    stereo KITTI driver on a rendered KITTI tree."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch import config as tcfg
+    from c_orb_slam_tpu_torch.examples import rgbd_tum, stereo_kitti
+    from c_orb_slam_tpu_torch.io import trajectory as traj_io
+    from c_orb_slam_tpu_torch.io.images import write_pgm, write_tum_rgbd_tree
+    from c_orb_slam_tpu_torch.io.native import decode_raw
+    from c_orb_slam_tpu_torch.ops import window_top2 as w2
+    from c_orb_slam_tpu_torch.system import System
+    from c_orb_slam_tpu_torch.tools import eval_cli_kitti
+    from c_orb_slam_tpu_torch.tracking import TrackState
+    from c_orb_slam_tpu_torch.viz import FrameDrawer
+
+    io = _image_io()
+    if "pnm" not in io["native decoders"]:
+        raise AssertionError("phase9: the native image loader has no PNM decoder")
+    png_readable = io["PIL"] or "png" in io["native decoders"]
+    syn = _synthetic()
+    fps = 30.0
+    K4 = (500.0, 500.0, 320.0, 240.0)
+    xw, inten, size = syn.blob_world(400, seed=5)
+    traj = syn.smooth_trajectory(PHASE9_ALL)
+    images = [_u8(syn.render_scene(xw, inten, size, T, K4)) for T in traj]
+    depths = [np.round(syn.render_depth(xw, size, T, K4) * 5000).astype(np.uint16) for T in traj]
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="phase9_") as d:
+        seq = os.path.join(d, "tum")
+        assoc = write_tum_rgbd_tree(seq, images, depths, [i / fps for i in range(PHASE9_ALL)],
+                                    depth_writer=write_pgm)
+        settings = os.path.join(d, "settings.yaml")
+        with open(settings, "w") as f:
+            f.write(TUM_SETTINGS)
+        # The depth check and the driver's reads go through the native
+        # build alone (the PGM images and 16-bit PGM depth), PIL refused.
+        with _native_reads_only():
+            for i in range(PHASE9_MAP):
+                got = decode_raw(os.path.join(seq, "depth", f"{i:06d}.pgm"))
+                if not np.array_equal(got, depths[i].astype(np.float32)):
+                    raise AssertionError(f"phase9: depth {i} decodes to other values than written")
+            print(f"phase9 the {PHASE9_MAP} 16-bit depth maps decode natively to the values "
+                  f"written (max {int(max(d.max() for d in depths[:PHASE9_MAP]))})", flush=True)
+
+            # The RGB-D driver, as a user starts it, mapping the first frames.
+            out, map_path = os.path.join(d, "traj.txt"), os.path.join(d, "map.npz")
+            torch.cuda.synchronize()
+            w2.reset_launches()
+            t0 = time.perf_counter()
+            mapper = rgbd_tum.main([settings, seq, "--associations", assoc, "--out", out,
+                                    "--kf-out", os.path.join(d, "kf.txt"), "--no-realtime",
+                                    "--device", str(dev), "--save-map", map_path,
+                                    "--max-frames", str(PHASE9_MAP)])
+            torch.cuda.synchronize()
+            drv_s = time.perf_counter() - t0
+        launches += w2.launches
+        rows = np.loadtxt(out)
+        ids = np.round(rows[:, 0] * fps).astype(int)
+        centres = np.concatenate([np.tile(np.eye(3), (len(rows), 1, 1)), -rows[:, 1:4, None]], 2)
+        ate = traj_io.ate_rmse(centres, traj[ids], with_scale=False)
+        n_kf, n_pt = len(mapper.map.live_keyframes()), int(mapper.map.pt_valid.sum())
+        print(f"phase9 rgbd_tum driver: {len(rows)}/{PHASE9_MAP} frames in the saved TUM "
+              f"trajectory, ATE {ate:.5f} m (absolute scale), {drv_s:.1f} s with the map save, "
+              f"{n_kf} keyframes, {n_pt} points, window_top2 launches {w2.launches} "
+              f"{json.dumps({'x'.join(map(str, k)): v for k, v in sorted(w2.launch_shapes.items())})}",
+              flush=True)
+        if len(rows) < 0.9 * PHASE9_MAP or not ate < 0.05:
+            raise AssertionError(f"phase9: the driver tracked {len(rows)} frames, ATE {ate:.4f} m")
+
+        # Relocalize into the saved map and track in localization mode.
+        cfg = tcfg.load_yaml(settings, tcfg.Sensor.RGBD)
+        t0 = time.perf_counter()
+        loc = System.from_saved_map(map_path, cfg, dev)
+        load_ms = (time.perf_counter() - t0) * 1000.0
+        if (len(loc.map.live_keyframes()), int(loc.map.pt_valid.sum())) != (n_kf, n_pt):
+            raise AssertionError("phase9: the loaded map differs from the saved one")
+        relocs, vo, ok = [], [], []
+        _timed(loc.tracker, "_relocalize", relocs)
+        frames = [(images[i], depths[i]) for i in range(PHASE9_LOC, PHASE9_ALL)]
+
+        def on_frame(j):
+            if loc.tracker.state == TrackState.OK:
+                ok.append(PHASE9_LOC + j)
+                if loc.tracker._vo_mode:
+                    vo.append(PHASE9_LOC + j)
+
+        run = drive("phase9 localization", loc, frames,
+                    lambda s, j, f: s.track_rgbd(f[0], f[1], (PHASE9_LOC + j) / fps),
+                    traj, fps, with_scale=False, on_frame=on_frame)
+        launches += run["launches"]
+        mapped = [i for i in run["ids"] if i < PHASE9_MAP]
+        poses, stamps = loc.frame_poses()
+        sel = [k for k, t in enumerate(stamps) if round(t * fps) < PHASE9_MAP]
+        ate_map = traj_io.ate_rmse(poses[sel], traj[[run["ids"][k] for k in sel]],
+                                   with_scale=False)
+        past = [i for i in run["ids"] if i >= PHASE9_MAP]
+        print(f"phase9 from_saved_map {load_ms:.1f} ms (load + BoW index of {n_kf} keyframes); "
+              f"relocalize calls (host ms incl. sync, ok) "
+              f"{[(round(ms, 3), bool(o[0])) for ms, o in relocs]}, first frame OK "
+              f"{ok[0] if ok else None}; mapped frames tracked "
+              f"{len(mapped)}/{PHASE9_MAP - PHASE9_LOC}, ATE over them {ate_map:.5f} m; past the "
+              f"map tracked {len(past)}/{PHASE9_ALL - PHASE9_MAP}; VO mode on frames {vo}; map "
+              f"{len(loc.map.live_keyframes())} keyframes, {int(loc.map.pt_valid.sum())} points",
+              flush=True)
+        if not ok or ok[0] > PHASE9_LOC + 2:
+            raise AssertionError("phase9: no relocalization on the first frames")
+        if len(mapped) < 0.9 * (PHASE9_MAP - PHASE9_LOC) or not ate_map < 0.05:
+            raise AssertionError(f"phase9: mapped frames {len(mapped)} tracked, ATE {ate_map:.4f}")
+        if (len(loc.map.live_keyframes()), int(loc.map.pt_valid.sum())) != (n_kf, n_pt):
+            raise AssertionError("phase9: localization mode changed the map")
+        if len([i for i in vo if i >= PHASE9_MAP]) < PHASE9_MIN_VO:
+            raise AssertionError(f"phase9: VO mode on frames {vo} only past the mapped region")
+        fd = FrameDrawer(loc)
+        fd.update(images[PHASE9_MAP - 1])
+        img = fd.draw_frame()
+        if img.dtype != np.uint8 or img.shape[:2] != (480 + 22, 640):
+            raise AssertionError(f"phase9: FrameDrawer drew {img.dtype} {img.shape}")
+        print(f"phase9 FrameDrawer drew a {img.shape} frame", flush=True)
+
+        if not png_readable:
+            print("phase9 no PNG decoder on this machine (no libpng headers, no PIL): the "
+                  "stereo KITTI driver is not driven", flush=True)
+            return launches
+        n = 30
+        kitti = os.path.join(d, "kitti")
+        gt = eval_cli_kitti.generate_tree(kitti, n)
+        out = os.path.join(d, "kitti.txt")
+        w2.reset_launches()
+        stereo_kitti.main([os.path.join(kitti, "settings.yaml"), kitti, "--out", out, "--kf-out",
+                           os.path.join(d, "kitti_kf.txt"), "--no-realtime", "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches += w2.launches
+        n_rows, ate = eval_cli_kitti.kitti_ate(out, gt)
+        print(f"phase9 stereo_kitti driver at KITTI geometry: {n_rows}/{n} frames, ATE "
+              f"{ate} m, window_top2 launches {w2.launches}", flush=True)
+        if n_rows != n or not ate < 0.05:
+            raise AssertionError(f"phase9: stereo_kitti tracked {n_rows}/{n}, ATE {ate}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1026,7 +1255,7 @@ def main() -> int:
         rows, max_err, empty_ms = phase1(dev)
         launches = 0
         for num, phase in ((2, phase2), (3, phase3), (4, phase4), (5, phase5), (6, phase6),
-                           (7, phase7), (8, phase8)):
+                           (7, phase7), (8, phase8), (9, phase9)):
             t0 = time.perf_counter()
             launches += phase(dev) or 0
             if num == 6:

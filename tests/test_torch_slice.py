@@ -82,7 +82,9 @@ def test_rgbd_slice_matches_jax(sequence):
     assert np.isfinite(t_poses).all()
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(tmp_path):
+    """Every entry point of the JAX System is ported now: none raises
+    NotImplementedError."""
     cfg = _cfg(tcfg)
     # Loop closing defaults on, as in the JAX API, and is ported: the
     # constructor loads the port's own vocabulary.
@@ -91,6 +93,9 @@ def test_unported_entry_points_raise():
     assert with_loop.tracker.reloc_provider is with_loop.loop_closing
     sysm = TorchSystem(cfg, "cpu", enable_loop_closing=False)
     assert sysm.loop_closing is None
-    for call in (sysm.activate_localization_mode, lambda: sysm.save_map("unused.npz")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    sysm.activate_localization_mode()
+    assert sysm.localization_only and sysm.tracker.only_tracking
+    path = str(tmp_path / "empty_map.npz")
+    sysm.save_map(path)
+    loaded = TorchSystem.from_saved_map(path, cfg, "cpu", enable_loop_closing=False)
+    assert loaded.map.n_keyframes == 0 and loaded.localization_only
