@@ -3,9 +3,8 @@
 Counterpart of c_orb_slam_tpu/frontend/frame.py (reference: src/Frame.cc —
 the stereo :61, RGB-D :119 and mono :174 constructors, keypoint
 undistortion :404, stereo matching :466). Stereo input is assumed
-rectified, as in the JAX package: rectification (frontend/rectify.py)
-belongs to the dataset loaders, not ported yet (ROADMAP.md queue 1:
-product surface).
+rectified, as in the JAX package: the stereo drivers rectify raw pairs
+first (frontend/rectify.py, used by examples/stereo_euroc.py).
 """
 
 from __future__ import annotations

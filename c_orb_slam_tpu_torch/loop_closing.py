@@ -18,10 +18,13 @@ pass (ops/sim3solve.py); the essential graph is a Sim3 pose-graph GN with
 implicit PCG (optim/pose_graph.py). One chunk of device work is queued
 per tracked frame and read back through utils/host.fetch_async.
 
-One device only: the JAX package's map-sharded global BA and edge-sharded
-pose graph belong to its parallel/ package and are not here. Match and
-point lists are not padded to power-of-two sizes: every padded row was
-masked out, so no result depended on the padded shape.
+On a mesh of more than one shard (parallel/mesh.py), as the JAX package
+at more than one device: the essential graph's edges are sharded
+(parallel/dpose_graph) and the global BA's map (parallel/sharded_ba,
+``_ShardedGbaJob``). Both stay chunked one iteration per tracked frame,
+as on one device (the JAX package dispatches each sharded solve at once).
+Match and point lists are not padded to power-of-two sizes: every padded
+row was masked out, so no result depended on the padded shape.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from c_orb_slam_tpu_torch.geometry import camera, np_se3, se3, sim3
 from c_orb_slam_tpu_torch.ops import match, sim3solve
 from c_orb_slam_tpu_torch.optim import ba as ba_mod
 from c_orb_slam_tpu_torch.optim import pose_graph, sim3_opt
+from c_orb_slam_tpu_torch.parallel import dpose_graph, sharded_ba
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.utils.host import fetch, fetch_async, to_device
 
@@ -192,6 +197,7 @@ class _CorrectionJob:
         self.fuse_pts_mask = None
         # Essential-graph state.
         self.pg_problem = None
+        self.pg_solve = None  # pose_graph.GraphSolve, stepped once a frame
         self.verts = None
         self.pg_iter = 0
         self.live_arr = None
@@ -231,84 +237,91 @@ class _Sim3Job:
 class _GbaJob:
     """In-flight snapshot-epoch global BA (see LoopClosing._start_gba).
 
-    Owns a device-resident BAProblem; advance() queues ONE LM iteration
-    with the implicit-Schur PCG (no readback), walking the two-stage
-    schedule of bundle_adjust (huber stage -> inlier reclassification ->
-    clean stage) one chunk per call. ready() goes true once the final
-    readback has landed."""
+    Owns a device-resident BAProblem, solved on one device with the
+    implicit-Schur PCG: advance() queues ONE LM iteration (no readback),
+    walking the two-stage schedule of bundle_adjust (huber stage -> inlier
+    reclassification -> clean stage, ``ba.TwoStage``) one chunk per call.
+    ready() goes true once the final readback has landed."""
 
     def __init__(self, problem, kfs, kf_serials, pts, pt_serials,
                  iters_first, iters_second, pcg_iters,
-                 chi2_mono, chi2_stereo):
-        self.p = problem
+                 chi2_mono, chi2_stereo, mesh: Mesh):
         self.kfs = kfs
         self.kf_serials = kf_serials
         self.pts = pts
         self.pt_serials = pt_serials
-        self.iters_first = iters_first
-        self.iters_second = iters_second
-        self.pcg_iters = pcg_iters
-        self.chi2_mono = chi2_mono
-        self.chi2_stereo = chi2_stereo
-        self.stage = 0  # 0 huber LM, 1 clean LM, 2 fetch, 3 done
-        self.i = 0
-        self.lam = self._lam0()
-        self.err = None
+        self.solve = self._solve(problem, mesh, iters_first, iters_second, pcg_iters,
+                                 chi2_mono, chi2_stereo)
         self._fut = None
         # CPU: apply as soon as the fetch is dispatched, so the apply
         # frame never depends on timing (same determinism rationale as
         # LocalMapping._fixed_defer).
         self._fixed = problem.points.device.type == "cpu"
 
-    def _lam0(self):
-        return torch.tensor(1e-4, dtype=torch.float32, device=self.p.points.device)
+    def _solve(self, problem, mesh, iters_first, iters_second, pcg_iters, chi2_mono,
+               chi2_stereo) -> ba_mod.TwoStage:
+        return ba_mod.lm_solve(Mesh([problem.points.device]), [problem], iters_first,
+                               iters_second, chi2_mono, chi2_stereo, pcg_iters, schur="pcg")
+
+    def _solution(self):
+        """(cam_T, points) of the snapshot's keyframes and points."""
+        return self.solve.cam_T[0], self.solve.points[0]
+
+    @property
+    def err(self):
+        return self.solve.err[0] if self.solve.err is not None else None
+
+    @property
+    def lam(self):
+        return self.solve.lam[0] if self.solve.lam is not None else None
 
     def advance(self):
-        if self.stage >= 2:
+        if self._fut is not None:
             return
-        use_huber = self.stage == 0
-        if self.err is None:
-            self.err = ba_mod.stage_error(
-                self.p, use_huber=use_huber,
-                chi2_mono=self.chi2_mono, chi2_stereo=self.chi2_stereo,
-            )
-        cam_T, points, self.lam, self.err = ba_mod.lm_step(
-            self.p, self.lam, self.err, use_huber=use_huber,
-            chi2_mono=self.chi2_mono, chi2_stereo=self.chi2_stereo,
-            pcg_iters=self.pcg_iters, schur="pcg",
-        )
-        self.p = self.p._replace(cam_T=cam_T, points=points)
-        self.i += 1
-        if self.stage == 0 and self.i >= self.iters_first:
-            inlier = ba_mod.classify_inliers(
-                self.p, chi2_mono=self.chi2_mono,
-                chi2_stereo=self.chi2_stereo,
-            )
-            self.p = self.p._replace(obs_valid=inlier)
-            self.stage, self.i = 1, 0
-            self.lam = self._lam0()
-            self.err = None
-        elif self.stage == 1 and self.i >= self.iters_second:
-            self.stage = 2
-            self._fut = fetch_async(self.p.cam_T, self.p.points)
+        self.solve.step()
+        if self.solve.done:
+            self._fut = fetch_async(*self._solution())
 
     def ready(self, force: bool) -> bool:
-        return self.stage == 2 and (
-            force or self._fixed or self._fut.done()
-        )
+        return self._fut is not None and (force or self._fixed or self._fut.done())
 
     def result(self):
-        cam_T, points = self._fut.result()
-        self.stage = 3
-        return cam_T, points
+        return self._fut.result()
+
+
+class _ShardedGbaJob(_GbaJob):
+    """Multi-shard variant of _GbaJob (JAX loop_closing.py:323-360): the
+    snapshot problem is partitioned through parallel/sharded_ba (map
+    sharded over the mesh, camera Schur system reduce-scattered) and
+    solved on the same schedule, ONE LM iteration per advance(), where
+    the JAX package dispatches the whole solve at once: in eager PyTorch
+    one dispatch is one host loop that launches every kernel before the
+    frame returns, so the per-frame chunking of the single-device job is
+    kept."""
+
+    def _solve(self, problem, mesh, iters_first, iters_second, pcg_iters, chi2_mono,
+               chi2_stereo) -> ba_mod.TwoStage:
+        solve, _ = sharded_ba.map_sharded_solve(
+            problem, mesh, iters_first=iters_first, iters_second=iters_second,
+            pcg_iters=pcg_iters, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo)
+        self._mesh = mesh
+        return solve
+
+    def _solution(self):
+        # Padding is appended, ids preserved: slice back to the snapshot.
+        points = self._mesh.gather_local(self.solve.points)
+        return self.solve.cam_T[0][: len(self.kfs)], points[: len(self.pts)]
 
 
 class LoopClosing:
-    def __init__(self, cfg: SlamConfig, mapstate: MapState, device: torch.device,
+    def __init__(self, cfg: SlamConfig, mapstate: MapState, device: torch.device, mesh: Mesh,
                  vocabulary: Optional[vocab_mod.Vocabulary] = None):
         self.cfg = cfg
         self.map = mapstate
         self.device = torch.device(device)
+        # More than one shard: the essential graph and the global BA take
+        # the sharded solvers (JAX: len(jax.devices()) > 1).
+        self.mesh = mesh
         self.K = camera.intrinsics_array(cfg.camera, self.device)
         self.sigma2 = np.asarray(cfg.orb.level_sigma2(), np.float32)
         self.fix_scale = cfg.sensor != Sensor.MONOCULAR
@@ -335,8 +348,10 @@ class LoopClosing:
         self.n_loops_closed = 0
         # In-flight snapshot-epoch global BA (None when idle) + counter of
         # applied background solves.
-        self.gba_job: Optional[_GbaJob] = None
+        self.gba_job: Optional[_GbaJob | _ShardedGbaJob] = None
         self.n_gba_applied = 0
+        # Essential-graph solves by route.
+        self.pg_routes = {"gn_step": 0, "dpose_graph": 0}
         self.n_gba_replay_unresolved = 0
         # In-flight staged loop correction (fuse -> essential graph ->
         # GBA arming), advanced one chunk per tracked frame.
@@ -1106,15 +1121,12 @@ class LoopClosing:
                 return False
         if job.stage == "pg":
             while job.pg_iter < self.cfg.optimizer.essential_graph_its:
-                job.verts = pose_graph.gn_step(
-                    job.pg_problem, job.verts,
-                    pcg_iters=self.cfg.optimizer.pcg_iters,
-                    fix_scale=self.fix_scale,
-                )
+                job.pg_solve.step(self.cfg.optimizer.pcg_iters)
                 job.pg_iter += 1
                 if not force:
                     break  # one GN chunk per frame
             if job.pg_iter >= self.cfg.optimizer.essential_graph_its:
+                job.verts = job.pg_solve.vertices.to(self.device)
                 self._dispatch_pg_finalize(job)
                 job.stage = "pg_fetch"
             if not force:
@@ -1214,8 +1226,14 @@ class LoopClosing:
         )
         job.live_arr = live_arr
         job.live_serials = mp.kf_serial[live_arr].copy()
-        # Chunked GN: one iteration per tracked frame.
-        job.verts = job.pg_problem.vertices
+        # Chunked GN: one iteration per tracked frame, over the mesh: its
+        # edges sharded when it has more than one shard (parallel/
+        # dpose_graph, JAX: len(jax.devices()) > 1). The JAX package solves
+        # the sharded graph in one dispatch; in eager PyTorch that is one
+        # host loop over every kernel inside the frame, so the port keeps
+        # the chunking on both routes.
+        job.pg_solve = dpose_graph.graph_solve(job.pg_problem, self.mesh, self.fix_scale)
+        self.pg_routes["dpose_graph" if self.mesh.size > 1 else "gn_step"] += 1
         job.stage = "pg"
 
     def _dispatch_pg_finalize(self, job: "_CorrectionJob"):
@@ -1342,9 +1360,7 @@ class LoopClosing:
             K=self.K, bf=torch.tensor(float(self.cfg.camera.bf), device=self.device),
         )
         problem = ba_mod.sort_by_point(problem)
-        # The LM schedule is chunked one iteration per frame, so tracking
-        # interleaves with the solve on the one device.
-        self.gba_job = _GbaJob(
+        job = dict(
             problem=problem,
             kfs=live,
             kf_serials=mp.kf_serial[live].copy(),
@@ -1356,6 +1372,10 @@ class LoopClosing:
             chi2_mono=self.cfg.optimizer.chi2_mono,
             chi2_stereo=self.cfg.optimizer.chi2_stereo,
         )
+        # The LM schedule is chunked one iteration per frame, so tracking
+        # interleaves with the solve; more than one shard: the map-sharded
+        # solve (parallel/sharded_ba).
+        self.gba_job = (_ShardedGbaJob if self.mesh.size > 1 else _GbaJob)(mesh=self.mesh, **job)
         self.gba_job.advance()  # dispatch the first chunk now
 
     def _advance_gba(self, force: bool = False):

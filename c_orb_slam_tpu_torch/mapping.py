@@ -6,8 +6,10 @@ SearchInNeighbors :454, LocalBundleAdjustment :81, KeyFrameCulling :632).
 A stage pipeline the host loop advances once per tracked frame; each
 batched stage has a dispatch half (queue device work, start the
 readback) and an apply half (host bookkeeping) run on a later frame.
-Single device only: the JAX package's multi-device local BA
-(parallel/dba) is ROADMAP.md's parallel/ item.
+On a mesh of more than one shard, full-bucket local-BA windows go through
+parallel/dba (observations sharded), as the JAX package routes them at
+more than one device; ``process_keyframe`` runs the same stages as one
+synchronous pass.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from c_orb_slam_tpu_torch.config import SlamConfig, Sensor
 from c_orb_slam_tpu_torch.geometry import camera, se3, triangulate
 from c_orb_slam_tpu_torch.ops import match
 from c_orb_slam_tpu_torch.optim import ba
+from c_orb_slam_tpu_torch.parallel import dba
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.tracking import frustum_check
 from c_orb_slam_tpu_torch.utils.host import fetch_async, to_device
@@ -155,10 +159,11 @@ def _fuse_pairs_batch(cfg: SlamConfig, dsts, pts_idx, KF_pose, KF_xy, KF_octave,
 
 
 class LocalMapping:
-    def __init__(self, cfg: SlamConfig, mapstate: MapState, device: torch.device):
+    def __init__(self, cfg: SlamConfig, mapstate: MapState, device: torch.device, mesh: Mesh):
         self.cfg = cfg
         self.map = mapstate
         self.device = torch.device(device)
+        self.mesh = mesh  # more than one shard: full-bucket local BAs through parallel/dba
         self.recent_points: list[tuple[int, int]] = []  # (pt, born_serial)
         self.K = camera.intrinsics_array(cfg.camera, self.device)
         self.sigma2 = np.asarray(cfg.orb.level_sigma2(), np.float32)
@@ -182,6 +187,7 @@ class LocalMapping:
         self._pending_tri = self._pending_fuse = self._pending_ba = None
         self._waits = {"tri": 0, "fuse": 0, "ba": 0}
         self.n_local_ba = 0  # local BA solves applied
+        self.ba_routes = {"ba.bundle_adjust": 0, "dba": 0}  # solves dispatched, by route
 
     # ------------------------------------------------------------------
     def warm_programs(self):
@@ -190,9 +196,9 @@ class LocalMapping:
         start-up instead of on a mid-sequence frame."""
         cap = self.cfg.capacity
         dev = self.device
-        for C, P, O in (
-            (16, 2048, 4096),
-            (cap.local_ba_max_kfs * 2, cap.local_ba_max_points, cap.local_ba_max_obs),
+        for small, (C, P, O) in (
+            (True, (16, 2048, 4096)),
+            (False, (cap.local_ba_max_kfs * 2, cap.local_ba_max_points, cap.local_ba_max_obs)),
         ):
             cam_fixed = torch.zeros(C, dtype=torch.bool, device=dev)
             cam_fixed[0] = True
@@ -215,7 +221,7 @@ class LocalMapping:
                 obs_valid=obs_valid, K=self.K,
                 bf=torch.tensor(float(self.cfg.camera.bf), device=dev),
             )
-            self._solve_local_ba(prob)
+            self._solve_local_ba(prob, small, O)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -248,17 +254,7 @@ class LocalMapping:
             if not self._stages:
                 if not self.queue:
                     return
-                kf = self.queue.pop(0)
-                self._stages = [
-                    ("cull_pts", lambda k=kf: self._cull_recent_points(k)),
-                    ("tri_dispatch", lambda k=kf: self._triangulate_dispatch(k)),
-                    ("tri_apply", self._triangulate_apply),
-                    ("fuse_dispatch", lambda k=kf: self._fuse_dispatch(k)),
-                    ("fuse_apply", self._fuse_apply),
-                    ("ba_dispatch", lambda k=kf: self._ba_dispatch_if_ready(k)),
-                    ("ba_apply", self._ba_apply),
-                    ("finish_kf", lambda k=kf: self._finish_keyframe(k)),
-                ]
+                self._stages = self._stages_of(self.queue.pop(0))
             name, fn = self._stages[0]
             if self.metrics is not None:
                 with self.metrics.stage("map." + name):
@@ -271,6 +267,33 @@ class LocalMapping:
             n_stages += 1
             if n_stages >= stage_budget:
                 return
+
+    def _stages_of(self, kf: int) -> list:
+        """The mapping pass of one keyframe as (name, stage) pairs, in the
+        reference's Run order (LocalMapping.cc:62-87); each batched stage
+        is a dispatch half and an apply half."""
+        return [
+            ("cull_pts", lambda: self._cull_recent_points(kf)),
+            ("tri_dispatch", lambda: self._triangulate_dispatch(kf)),
+            ("tri_apply", self._triangulate_apply),
+            ("fuse_dispatch", lambda: self._fuse_dispatch(kf)),
+            ("fuse_apply", self._fuse_apply),
+            ("ba_dispatch", lambda: self._ba_dispatch_if_ready(kf)),
+            ("ba_apply", self._ba_apply),
+            ("finish_kf", lambda: self._finish_keyframe(kf)),
+        ]
+
+    def process_keyframe(self, kf: int):
+        """Full synchronous mapping pass for one keyframe (JAX
+        mapping.py:447-468): cull recent points, create new points, fuse
+        neighbours, local BA when more than 2 keyframes are live, finish
+        the keyframe. The same stages as the pipelined step(), each apply
+        half run to completion at once (an apply that reports NOT_READY is
+        retried until its readback lands). For tests, drains and offline
+        use."""
+        for _, stage in self._stages_of(kf):
+            while stage() is NOT_READY:
+                pass
 
     def drain(self):
         """Run the pipeline to empty (shutdown/reset/loop-closing barrier).
@@ -540,7 +563,8 @@ class LocalMapping:
         cam_slot = {k: i for i, k in enumerate(cams)}
         # Two problem sizes (small / full), as the JAX package's buckets.
         n_obs_est = int(np.count_nonzero(mp.pt_obs_kf[pts] >= 0)) if len(pts) else 0
-        if len(cams) <= 16 and len(pts) <= 2048 and n_obs_est <= 4096:
+        small = len(cams) <= 16 and len(pts) <= 2048 and n_obs_est <= 4096
+        if small:
             C, P, O = 16, 2048, 4096
         else:
             C, P, O = cap.local_ba_max_kfs * 2, cap.local_ba_max_points, cap.local_ba_max_obs
@@ -600,20 +624,30 @@ class LocalMapping:
             obs_pt, obs_uv, obs_stereo, obs_isig, obs_valid, np.float32(self.cfg.camera.bf),
         )
         problem = ba.BAProblem(*up[:11], K=self.K, bf=up[11])
-        result = self._solve_local_ba(problem)
+        result = self._solve_local_ba(problem, small, O)
         fut = fetch_async(result.cam_T, result.points, result.obs_inlier)
         self._pending_ba = (cam_slot, cam_fixed, pts, n_obs, obs_pt, obs_valid, kfs_sel, fut)
 
-    def _solve_local_ba(self, problem):
-        """Dispatch the local BA solve (shared by _ba_dispatch and
-        warm_programs): dense Schur, single device."""
-        return ba.bundle_adjust(
-            problem,
-            iters_first=self.cfg.optimizer.local_ba_its_first,
-            iters_second=self.cfg.optimizer.local_ba_its_second,
-            chi2_mono=self.cfg.optimizer.chi2_mono,
-            chi2_stereo=self.cfg.optimizer.chi2_stereo,
-        )
+    def _solve_local_ba(self, problem: ba.BAProblem, small: bool, O: int) -> ba.BAResult:
+        """Dispatch the local BA solve, dense Schur: the one routing point
+        of _ba_dispatch and warm_programs (JAX mapping.py:899-934). A
+        full-bucket window on a mesh of more than one shard goes through
+        parallel/dba with its observations sharded; small buckets stay on
+        one device (sharding a tiny problem costs more in collectives than
+        it saves). A failure on the sharded route raises."""
+        opt = self.cfg.optimizer
+        kw = dict(iters_first=opt.local_ba_its_first, iters_second=opt.local_ba_its_second,
+                  chi2_mono=opt.chi2_mono, chi2_stereo=opt.chi2_stereo,
+                  pcg_iters=opt.pcg_iters, schur="dense")
+        if not small and self.mesh.size > 1:
+            self.ba_routes["dba"] += 1
+            result = dba.distributed_bundle_adjust(
+                dba.pad_observations(problem, self.mesh.size), self.mesh, **kw)
+            # The padding is appended: slice it off, so the apply side
+            # indexes observations as before.
+            return result._replace(obs_inlier=result.obs_inlier[:O])
+        self.ba_routes["ba.bundle_adjust"] += 1
+        return ba.bundle_adjust(problem, **kw)
 
     def _ba_apply(self):
         if self._pending_ba is None:

@@ -12,17 +12,22 @@ C); "pcg" never forms S or W and runs preconditioned conjugate gradients
 on the implicit matvec S·x = Hcc·x − W·Hpp⁻¹·Wᵀ·x, two gathers and two
 index_adds an application (global BA, where the dense W would not fit).
 ``schur`` defaults to "dense" here (the JAX package defaults to "pcg").
-Fixed cameras get zero Jacobians; invalid slots are masked.
+Fixed cameras get zero Jacobians; invalid slots are masked. The iteration
+and the two-stage schedule (``TwoStage``) are written once over the
+shards of a mesh: the functions here run them on a one-shard mesh,
+parallel/dba with the observations split over several shards, and
+parallel/sharded_ba's map-sharded iteration reuses the schedule.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from c_orb_slam_tpu_torch.geometry import se3
 from c_orb_slam_tpu_torch.optim import residuals as res
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh, pcg
 
 
 class BAProblem(NamedTuple):
@@ -78,8 +83,11 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, seg.long(), x)
 
 
-def _assemble(p: BAProblem, r, Jc, Jp, w, lm_lambda):
-    """Normal-equation blocks: Hcc (C,6,6), Hpp^-1 (P,3,3), gc, gp."""
+def _normal_sums(p: BAProblem, r, Jc, Jp, w):
+    """Undamped normal-equation blocks, segment sums over the observations
+    of `p`: Hcc (C,6,6), gc (C,6), Hpp (P,3,3), gp (P,3). Linear in the
+    observations, so a sharded solve sums shards' partials
+    (parallel/dba.py, parallel/sharded_ba.py)."""
     C = p.cam_T.shape[0]
     P = p.points.shape[0]
     Jcw = Jc * w[:, None, None]
@@ -88,14 +96,20 @@ def _assemble(p: BAProblem, r, Jc, Jp, w, lm_lambda):
     gc = _segment_sum((Jcw.transpose(1, 2) @ r[..., None])[..., 0], p.obs_cam, C)
     Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, p.obs_pt, P)
     gp = _segment_sum((Jpw.transpose(1, 2) @ r[..., None])[..., 0], p.obs_pt, P)
-    eye6 = torch.eye(6, dtype=r.dtype, device=r.device)
-    eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
-    # LM damping; dead camera/point slots get identity so inverses exist.
-    free_cam = (p.cam_valid & ~p.cam_fixed).to(r.dtype)[:, None, None]
+    return Hcc, gc, Hpp, gp
+
+
+def _damp(p: BAProblem, Hcc, Hpp, lm_lambda):
+    """LM damping; dead camera/point slots get identity so inverses
+    exist. Returns (Hcc, Hpp^-1)."""
+    dt, dev = Hcc.dtype, Hcc.device
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    free_cam = (p.cam_valid & ~p.cam_fixed).to(dt)[:, None, None]
     Hcc = Hcc + lm_lambda * eye6 + (1.0 - free_cam) * eye6
-    live_pt = p.point_valid.to(r.dtype)[:, None, None]
+    live_pt = p.point_valid.to(dt)[:, None, None]
     Hpp = Hpp + lm_lambda * eye3 + (1.0 - live_pt) * eye3
-    return Hcc, _inv3x3(Hpp), gc, gp
+    return Hcc, _inv3x3(Hpp)
 
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -125,16 +139,21 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
-def _solve_cameras_dense(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam):
-    """Explicit dense Schur complement + Cholesky solve of the (6C, 6C)
-    reduced camera system. Returns dc (C, 6)."""
+def _w_blocks(p: BAProblem, Jc, Jp, w):
+    """Dense W (6C x 3P) as per-observation 6x3 blocks summed by the flat
+    (point, camera) key: (P*C, 18). Linear in the observations."""
     C = p.cam_T.shape[0]
     P = p.points.shape[0]
-    # Dense W (6C x 3P): per-observation 6x3 blocks summed by the flat
-    # (point, camera) key.
     B = (Jc * w[:, None, None]).transpose(1, 2) @ Jp  # (O, 6, 3)
     key = p.obs_pt.long() * C + p.obs_cam.long()
-    Wpc = _segment_sum(B.reshape(-1, 18), key, P * C)
+    return _segment_sum(B.reshape(-1, 18), key, P * C)
+
+
+def _dense_solve(Wpc, Hcc, Hpp_inv, gc, gp, free_cam):
+    """Explicit dense Schur complement + Cholesky solve of the (6C, 6C)
+    reduced camera system from the (P*C, 18) W blocks. Returns dc (C, 6)."""
+    C = Hcc.shape[0]
+    P = Hpp_inv.shape[0]
     W = Wpc.reshape(P, C, 6, 3).permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     WH = torch.einsum("cpj,pjk->cpk", W.reshape(C * 6, P, 3), Hpp_inv)  # (6C, P, 3)
     S = -(WH.reshape(C * 6, P * 3) @ W.T)
@@ -163,73 +182,222 @@ def _wt_times(p: BAProblem, Jc, Jp, w, x):
     return _segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], p.obs_pt, p.points.shape[0])
 
 
-def _schur_matvec(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, x, free_cam):
-    """S @ x without materializing S. x: (C, 6)."""
-    x = x * free_cam[:, None]
-    hx = (Hcc @ x[..., None])[..., 0]
-    y = (Hpp_inv @ _wt_times(p, Jc, Jp, w, x)[..., None])[..., 0]
-    return (hx - _w_times(p, Jc, Jp, w, y)) * free_cam[:, None]
+# ---------------------------------------------------------------------------
+# One LM iteration, written once over the shards of a mesh
+# (parallel/mesh.py): the observations split into slabs, one problem `ps[i]`
+# a local shard, cameras and points replicated. The single-device solvers
+# run it on a one-shard mesh, where a psum is its argument; parallel/dba
+# runs it on several shards. Values are per-shard lists throughout.
+# ---------------------------------------------------------------------------
 
 
-def _pcg(matvec, precond, b, iters: int):
-    """Fixed-iteration preconditioned conjugate gradients."""
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    d = z
-    rz = (r * z).sum()
-    for _ in range(iters):
-        Ad = matvec(d)
-        alpha = rz / torch.clamp((d * Ad).sum(), min=1e-20)
-        x = x + alpha * d
-        r = r - alpha * Ad
-        z = precond(r)
-        rz_new = (r * z).sum()
-        beta = rz_new / torch.clamp(rz, min=1e-20)
-        d = z + beta * d
-        rz = rz_new
-    return x
+class _Normal(NamedTuple):
+    """The damped normal system of one LM iteration, replicated."""
+
+    Hcc: torch.Tensor  # (C, 6, 6)
+    Hpp_inv: torch.Tensor  # (P, 3, 3)
+    gc: torch.Tensor  # (C, 6)
+    gp: torch.Tensor  # (P, 3)
+    free: torch.Tensor  # (C,) 1 for a camera that moves
+    Wpc: Optional[torch.Tensor]  # (P*C, 18) W blocks (dense route only)
 
 
-def _solve_cameras_pcg(p: BAProblem, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam, pcg_iters):
-    """PCG on the implicit Schur system, block-Jacobi (Hcc^-1)
-    preconditioner. Returns dc (C, 6)."""
+def _normal(mesh: Mesh, ps, terms, lam, dense: bool) -> list:
+    """Each shard's partial Hcc, gc, Hpp and gp (and W blocks), joined by
+    one psum, then damped."""
+
+    def partial(p, t):
+        r, Jc, Jp, w = t
+        sums = _normal_sums(p, r, Jc, Jp, w)
+        return (*sums, _w_blocks(p, Jc, Jp, w)) if dense else sums
+
+    def damp(p, s, lam_):
+        Hcc, Hpp_inv = _damp(p, s[0], s[2], lam_)
+        free = (p.cam_valid & ~p.cam_fixed).to(Hcc.dtype)
+        return _Normal(Hcc, Hpp_inv, s[1], s[3], free, s[4] if dense else None)
+
+    return mesh.replicated(damp, ps, mesh.psum(mesh.per_shard(partial, ps, terms)), lam)
+
+
+def _wt_x(mesh: Mesh, ps, terms, x):
+    """Wᵀ x for replicated per-camera x (C, 6): (P, 3), a psum."""
+    return mesh.psum(mesh.per_shard(
+        lambda p, t, x_: _wt_times(p, t[1], t[2], t[3], x_), ps, terms, x))
+
+
+def _w_y(mesh: Mesh, ps, terms, y):
+    """W y for replicated per-point y (P, 3): (C, 6), a psum."""
+    return mesh.psum(mesh.per_shard(
+        lambda p, t, y_: _w_times(p, t[1], t[2], t[3], y_), ps, terms, y))
+
+
+def _schur_matvec(mesh: Mesh, ps, terms, nrm, x):
+    """S @ x = Hcc x − W Hpp⁻¹ Wᵀ x without materializing S or W; x (C, 6)."""
+    x = mesh.replicated(lambda n, x_: x_ * n.free[:, None], nrm, x)
+    y = mesh.replicated(lambda n, v: (n.Hpp_inv @ v[..., None])[..., 0], nrm,
+                        _wt_x(mesh, ps, terms, x))
+    return mesh.replicated(
+        lambda n, x_, z: ((n.Hcc @ x_[..., None])[..., 0] - z) * n.free[:, None],
+        nrm, x, _w_y(mesh, ps, terms, y))
+
+
+def _solve_cameras(mesh: Mesh, ps, terms, nrm, dense: bool, pcg_iters: int):
+    """dc (C, 6) of the reduced camera system: the dense Schur complement
+    and Cholesky, or PCG on the implicit matvec with the block-Jacobi
+    (Hcc⁻¹) preconditioner."""
+    if dense:
+        return mesh.replicated(
+            lambda n: _dense_solve(n.Wpc, n.Hcc, n.Hpp_inv, n.gc, n.gp, n.free), nrm)
     # Schur RHS: -(gc - W Hpp^-1 gp)
-    y = (Hpp_inv @ gp[..., None])[..., 0]
-    rhs = -(gc - _w_times(p, Jc, Jp, w, y)) * free_cam[:, None]
-    Hcc_inv = torch.linalg.inv(Hcc)
+    Wy = _w_y(mesh, ps, terms,
+              mesh.replicated(lambda n: (n.Hpp_inv @ n.gp[..., None])[..., 0], nrm))
+    rhs = mesh.replicated(lambda n, wy: -(n.gc - wy) * n.free[:, None], nrm, Wy)
+    Hcc_inv = mesh.replicated(lambda n: torch.linalg.inv(n.Hcc), nrm)
+    return pcg(
+        lambda x: _schur_matvec(mesh, ps, terms, nrm, x),
+        lambda v: mesh.replicated(
+            lambda hi, n, v_: (hi @ v_[..., None])[..., 0] * n.free[:, None], Hcc_inv, nrm, v),
+        lambda a, b: mesh.replicated(lambda a_, b_: (a_ * b_).sum(), a, b),
+        mesh.replicated, rhs, pcg_iters)
 
-    def matvec(x):
-        return _schur_matvec(p, Jc, Jp, w, Hcc, Hpp_inv, x, free_cam)
 
-    def precond(x):
-        return (Hcc_inv @ x[..., None])[..., 0] * free_cam[:, None]
+def _iteration(mesh: Mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo,
+               pcg_iters: int = 40, schur: str = "dense"):
+    """One damped GN step over observation shards. Returns per-shard
+    (cam_T, points)."""
+    terms = mesh.per_shard(
+        lambda p, T, X: _obs_terms(p, T, X, use_huber, chi2_mono, chi2_stereo)[:4],
+        ps, cam_T, points)
+    nrm = _normal(mesh, ps, terms, lam, schur == "dense")
+    dc = _solve_cameras(mesh, ps, terms, nrm, schur == "dense", pcg_iters)
+    Wt_dc = _wt_x(mesh, ps, terms, dc)
 
-    return _pcg(matvec, precond, rhs, pcg_iters)
+    def update(p, n, d, wt, T, X):
+        dp = (n.Hpp_inv @ (-n.gp - wt)[..., None])[..., 0]  # Hpp^-1 (-gp - Wᵀ dc)
+        dp = dp * p.point_valid.to(dp.dtype)[:, None]
+        new_T = se3.compose(se3.exp(d), T)
+        return torch.where(n.free[:, None, None] > 0, new_T, T), X + dp
+
+    new = mesh.replicated(update, ps, nrm, dc, Wt_dc, cam_T, points)
+    return [t[0] for t in new], [t[1] for t in new]
 
 
-def ba_iteration(
-    p: BAProblem, lm_lambda, use_huber, chi2_mono, chi2_stereo,
-    pcg_iters: int = 40, schur: str = "dense",
-):
-    """One damped GN step. Returns (new_cam_T, new_points, dc, dp)."""
-    r, Jc, Jp, w, _ = _obs_terms(p, p.cam_T, p.points, use_huber, chi2_mono, chi2_stereo)
-    Hcc, Hpp_inv, gc, gp = _assemble(p, r, Jc, Jp, w, lm_lambda)
-    free_cam = (p.cam_valid & ~p.cam_fixed).to(r.dtype)
-    if schur == "dense":
-        dc = _solve_cameras_dense(p, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam)
-    else:
-        dc = _solve_cameras_pcg(
-            p, Jc, Jp, w, Hcc, Hpp_inv, gc, gp, free_cam, pcg_iters
-        )
-    # dp = Hpp^-1 (-gp - Wᵀ dc)
-    u = (Jc @ dc[p.obs_cam.long()][..., None])[..., 0] * w[:, None]
-    Wt_dc = _segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], p.obs_pt, p.points.shape[0])
-    dp = (Hpp_inv @ (-gp - Wt_dc)[..., None])[..., 0]
-    dp = dp * p.point_valid.to(dp.dtype)[:, None]
-    new_T = se3.compose(se3.exp(dc), p.cam_T)
-    new_T = torch.where(free_cam[:, None, None] > 0, new_T, p.cam_T)
-    return new_T, p.points + dp, dc, dp
+def _error(mesh: Mesh, ps, cam_T, points, use_huber, chi2_mono, chi2_stereo):
+    """The robust total error, psummed over the shards."""
+    return mesh.psum(mesh.per_shard(
+        lambda p, T, X: _total_error(p, T, X, use_huber, chi2_mono, chi2_stereo),
+        ps, cam_T, points))
+
+
+def _lm_iteration(mesh: Mesh, ps, cam_T, points, lam, err, iteration: Callable,
+                  points_each: Callable, use_huber, chi2_mono, chi2_stereo):
+    """One damped iteration with LM accept/reject, on device (no readback).
+    Returns per-shard (cam_T, points, lam, err)."""
+    new_T, new_X = iteration(ps, cam_T, points, lam, use_huber)
+    new_err = _error(mesh, ps, new_T, new_X, use_huber, chi2_mono, chi2_stereo)
+    accept = mesh.replicated(lambda e, ne: ne < e, err, new_err)
+    return (
+        mesh.replicated(torch.where, accept, new_T, cam_T),
+        points_each(torch.where, accept, new_X, points),
+        mesh.replicated(lambda a, l: torch.where(a, l * 0.5, l * 4.0), accept, lam),
+        mesh.replicated(torch.where, accept, new_err, err),
+    )
+
+
+class TwoStage:
+    """bundle_adjust's schedule over the shards of a mesh, one damped LM
+    iteration a ``step()`` (reference: Optimizer.cc:659-709): an LM stage
+    with Huber weights, the inlier reclassification, a clean LM stage.
+    The live global BA steps it once per tracked frame, so tracking
+    interleaves with the solve on the device (the functional analog of the
+    reference's background GBA thread, LoopClosing.cc:645-749); the
+    solvers ``run()`` it to its end.
+
+    ``iteration(ps, cam_T, points, lam, use_huber)`` is one damped GN step
+    over the shards ``ps`` (``_iteration``, or parallel/sharded_ba's
+    map-sharded body); ``points_each`` applies an update to the points
+    (``Mesh.replicated`` where they are replicated, ``Mesh.per_shard``
+    where sharded). ``cam_T``, ``points``, ``lam`` and ``err`` are
+    per-shard lists."""
+
+    def __init__(self, mesh: Mesh, ps, cam_T, points, iteration: Callable,
+                 points_each: Callable, iters_first: int, iters_second: int,
+                 chi2_mono: float, chi2_stereo: float, lm_lambda0: float = 1e-4):
+        self.mesh, self.ps, self.cam_T, self.points = mesh, ps, cam_T, points
+        self.iteration, self.points_each = iteration, points_each
+        self.iters = (iters_first, iters_second)
+        self.chi2 = (chi2_mono, chi2_stereo)
+        self.lm_lambda0 = lm_lambda0
+        self.stage, self.i = 0, 0  # stage 0 Huber LM, 1 clean LM, 2 done
+        self.lam = self.err = None
+        self._settle()
+
+    @property
+    def done(self) -> bool:
+        return self.stage == 2
+
+    def _classify(self, q, T, X):
+        return classify_inliers(q._replace(cam_T=T, points=X), *self.chi2)
+
+    def _settle(self):
+        if self.stage == 0 and self.i >= self.iters[0]:
+            inlier = self.mesh.per_shard(self._classify, self.ps, self.cam_T, self.points)
+            self.ps = self.mesh.per_shard(lambda q, v: q._replace(obs_valid=v), self.ps, inlier)
+            self.stage, self.i, self.err = 1, 0, None
+        if self.stage == 1 and self.i >= self.iters[1]:
+            self.stage = 2
+
+    def step(self):
+        if self.done:
+            return
+        mesh, use_huber = self.mesh, self.stage == 0
+        if self.err is None:  # a stage starts: its initial error and damping
+            self.err = _error(mesh, self.ps, self.cam_T, self.points, use_huber, *self.chi2)
+            self.lam = mesh.replicated(lambda p: torch.tensor(
+                self.lm_lambda0, dtype=torch.float32, device=p.points.device), self.ps)
+        self.cam_T, self.points, self.lam, self.err = _lm_iteration(
+            mesh, self.ps, self.cam_T, self.points, self.lam, self.err, self.iteration,
+            self.points_each, use_huber, *self.chi2)
+        self.i += 1
+        self._settle()
+
+    def run(self) -> "TwoStage":
+        while not self.done:
+            self.step()
+        return self
+
+    def result(self):
+        """The final gate (chi2 and depth, Optimizer.cc:676-705): per-shard
+        (cam_T, points, obs_inlier) and the mean inlier chi2."""
+
+        def final(q, T, X):
+            inlier = self._classify(q, T, X)
+            r, _, _ = res.residual_and_jacobians(
+                T[q.obs_cam.long()], X[q.obs_pt.long()], q.obs_uv, q.K, q.bf, q.obs_stereo)
+            c2 = res.chi2(r, q.obs_inv_sigma2)
+            return inlier, (torch.where(inlier, c2, torch.zeros_like(c2)).sum(),
+                            inlier.to(torch.float32).sum())
+
+        out = self.mesh.per_shard(final, self.ps, self.cam_T, self.points)
+        s, n = self.mesh.psum([o[1] for o in out])[0]
+        return self.cam_T, self.points, [o[0] for o in out], s / torch.clamp(n, min=1.0)
+
+
+def lm_solve(mesh: Mesh, ps, iters_first: int, iters_second: int, chi2_mono: float,
+             chi2_stereo: float, pcg_iters: int = 40, schur: str = "dense") -> TwoStage:
+    """The two-stage solve over observation shards ``ps`` (cameras and
+    points replicated), not yet stepped."""
+
+    def iteration(ps_, T, X, lam, use_huber):
+        return _iteration(mesh, ps_, T, X, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters,
+                          schur)
+
+    return TwoStage(mesh, ps, [q.cam_T for q in ps], [q.points for q in ps], iteration,
+                    mesh.replicated, iters_first, iters_second, chi2_mono, chi2_stereo)
+
+
+def _one_shard(p: BAProblem) -> Mesh:
+    return Mesh([p.points.device])
 
 
 def _total_error(p, cam_T, points, use_huber, chi2_mono, chi2_stereo):
@@ -245,10 +413,14 @@ def _total_error(p, cam_T, points, use_huber, chi2_mono, chi2_stereo):
     return ((robust if use_huber else c2) * mask).sum()
 
 
-def sort_by_point(p: BAProblem) -> BAProblem:
-    """Observations sorted by (point, camera), stable (as jnp.argsort)."""
+def _point_order(p: BAProblem) -> torch.Tensor:
     C = p.cam_T.shape[0]
-    perm = torch.argsort(p.obs_pt.long() * C + p.obs_cam.long(), stable=True)
+    return torch.argsort(p.obs_pt.long() * C + p.obs_cam.long(), stable=True)
+
+
+def sort_by_point(p: BAProblem, perm: Optional[torch.Tensor] = None) -> BAProblem:
+    """Observations sorted by (point, camera), stable (as jnp.argsort)."""
+    perm = _point_order(p) if perm is None else perm
     return p._replace(
         obs_cam=p.obs_cam[perm],
         obs_pt=p.obs_pt[perm],
@@ -268,23 +440,16 @@ def lm_step(
     p: BAProblem, lam, err, use_huber=True, chi2_mono=5.991, chi2_stereo=7.815,
     pcg_iters: int = 40, schur: str = "dense",
 ):
-    """ONE damped LM iteration with accept/reject, on device (no
-    readback): the incremental global BA dispatches one of these per
-    tracked frame instead of a single monolithic solve, so tracking
-    interleaves with the solve on the device — the functional analog of
-    the reference's background GBA thread (LoopClosing.cc:645-749).
-    Returns (cam_T, points, lam, err)."""
-    new_T, new_pts, _, _ = ba_iteration(
-        p, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters, schur
-    )
-    new_err = _total_error(p, new_T, new_pts, use_huber, chi2_mono, chi2_stereo)
-    accept = new_err < err
-    return (
-        torch.where(accept, new_T, p.cam_T),
-        torch.where(accept, new_pts, p.points),
-        torch.where(accept, lam * 0.5, lam * 4.0),
-        torch.where(accept, new_err, err),
-    )
+    """ONE damped LM iteration with accept/reject on one device, no
+    readback (pairs with stage_error). Returns (cam_T, points, lam, err)."""
+    mesh = _one_shard(p)
+
+    def iteration(ps, T, X, lam_, h):
+        return _iteration(mesh, ps, T, X, lam_, h, chi2_mono, chi2_stereo, pcg_iters, schur)
+
+    out = _lm_iteration(mesh, [p], [p.cam_T], [p.points], [lam], [err], iteration,
+                        mesh.replicated, use_huber, chi2_mono, chi2_stereo)
+    return tuple(o[0] for o in out)
 
 
 def optimize(
@@ -330,23 +495,15 @@ def bundle_adjust(
     schur: str = "dense",
 ) -> BAResult:
     """Two-stage BA with outlier re-classification between stages
-    (reference: Optimizer.cc:659-709 LocalBundleAdjustment flow)."""
-    cam_T, points = optimize(
-        p, iters=iters_first, use_huber=True, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
-        pcg_iters=pcg_iters, schur=schur,
-    )
-    p = p._replace(cam_T=cam_T, points=points)
-    p = p._replace(obs_valid=classify_inliers(p, chi2_mono, chi2_stereo))
-    cam_T, points = optimize(
-        p, iters=iters_second, use_huber=False, chi2_mono=chi2_mono, chi2_stereo=chi2_stereo,
-        pcg_iters=pcg_iters, schur=schur,
-    )
-    p = p._replace(cam_T=cam_T, points=points)
-    inlier = classify_inliers(p, chi2_mono, chi2_stereo)
-    r, _, _ = res.residual_and_jacobians(
-        cam_T[p.obs_cam.long()], points[p.obs_pt.long()], p.obs_uv, p.K, p.bf, p.obs_stereo
-    )
-    c2 = res.chi2(r, p.obs_inv_sigma2)
-    n = torch.clamp(inlier.to(torch.float32).sum(), min=1.0)
-    mean_chi2 = torch.where(inlier, c2, torch.zeros_like(c2)).sum() / n
-    return BAResult(cam_T=cam_T, points=points, obs_inlier=inlier, final_chi2=mean_chi2)
+    (reference: Optimizer.cc:659-709 LocalBundleAdjustment flow) on one
+    device: ``lm_solve`` on a one-shard mesh. The observations are sorted
+    by (point, camera) for the solve; the inlier flags come back in the
+    input's order."""
+    perm = _point_order(p)
+    cam_T, points, inlier, mean_chi2 = lm_solve(
+        _one_shard(p), [sort_by_point(p, perm)], iters_first, iters_second, chi2_mono,
+        chi2_stereo, pcg_iters, schur).run().result()
+    obs_inlier = torch.empty_like(inlier[0])
+    obs_inlier[perm] = inlier[0]
+    return BAResult(cam_T=cam_T[0], points=points[0], obs_inlier=obs_inlier,
+                    final_chi2=mean_chi2)

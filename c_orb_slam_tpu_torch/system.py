@@ -8,9 +8,12 @@ constructor.
 
 Ported: monocular, stereo and RGB-D tracking with relocalization, loop
 closing (BoW place recognition, Sim3 alignment, staged correction,
-essential graph, background global BA) on one device, localization mode
+essential graph, background global BA), localization mode
 (System.cc:127-145), and map checkpoints (io/checkpoint.py) with
-``System.from_saved_map``.
+``System.from_saved_map``. ``mesh`` (parallel/mesh.py, in process; default:
+every visible device of the device's type, one shard on a CPU) routes the
+full-bucket local BA, the essential graph and the global BA to the
+sharded solvers of parallel/ when it has more than one shard.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from c_orb_slam_tpu_torch.geometry import np_se3
 from c_orb_slam_tpu_torch.io import checkpoint, trajectory as traj_io
 from c_orb_slam_tpu_torch.loop_closing import LoopClosing
 from c_orb_slam_tpu_torch.mapping import LocalMapping
+from c_orb_slam_tpu_torch.ops import window_top2
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh, make_mesh
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.tracking import Tracking, TrackState
 from c_orb_slam_tpu_torch.utils.host import fetch
@@ -46,10 +51,50 @@ def _to_gray_f32(image, device: torch.device) -> torch.Tensor:
     return img.to(torch.float32)
 
 
+def warm_linalg(device: torch.device):
+    """One small batched call of each dense solver kind, at each dtype and
+    shape family the solvers use: eigh of 12x12 (PnP DLT, float32), 4x4
+    (two-view triangulation, float32; Horn's Sim3, float64) and 9x9
+    (two-view null vectors, float64); 3x3 svd, det and inverse; the 6x6 /
+    7x7 solves and inverses of the pose, Sim3 and pose-graph steps; a
+    Cholesky factor and solve (local BA)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for batch in (1, 64):
+        def spd(n, dtype):
+            a = torch.randn(batch, n, n, generator=g, dtype=dtype)
+            return (a @ a.transpose(-1, -2) + n * torch.eye(n, dtype=dtype)).to(device)
+
+        for n, dtype in ((12, torch.float32), (4, torch.float32), (9, torch.float64),
+                         (4, torch.float64)):
+            torch.linalg.eigh(spd(n, dtype))
+        for dtype in (torch.float32, torch.float64):
+            m3 = spd(3, dtype)
+            torch.linalg.svd(m3)
+            torch.linalg.det(m3)
+            torch.linalg.inv_ex(m3)
+        for n in (6, 7):
+            m = spd(n, torch.float32)
+            torch.linalg.solve_ex(m, m[..., :1])
+            torch.linalg.solve(m, m[..., 0])
+            torch.linalg.inv(m)
+        m = spd(96, torch.float32)
+        torch.cholesky_solve(m[..., :1], torch.linalg.cholesky_ex(m)[0])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class System:
-    def __init__(self, cfg: SlamConfig, device, enable_loop_closing: bool = True):
+    def __init__(self, cfg: SlamConfig, device, enable_loop_closing: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        # The mesh is decided here only. In process whatever the state of
+        # torch.distributed: a process-group mesh would have each rank's
+        # mapper and loop closer call collectives on its own schedule.
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(device_type=self.device.type, group=False))
+        if self.mesh.group:
+            raise ValueError(f"System runs on an in-process mesh, not {self.mesh}")
         self._enable_loop_closing = enable_loop_closing
         self.metrics = Metrics()
         self._last_big_change = -1
@@ -75,9 +120,9 @@ class System:
         System.cc:106-113)."""
         self.map = map_state
         self.tracker = Tracking(self.cfg, self.map, self.device)
-        self.local_mapping = LocalMapping(self.cfg, self.map, self.device)
+        self.local_mapping = LocalMapping(self.cfg, self.map, self.device, self.mesh)
         self.loop_closing = (
-            LoopClosing(self.cfg, self.map, self.device, vocabulary)
+            LoopClosing(self.cfg, self.map, self.device, self.mesh, vocabulary)
             if self._enable_loop_closing
             else None
         )
@@ -254,9 +299,19 @@ class System:
                 break
 
     def warmup(self):
-        """Run the local-BA solve once at both problem sizes, so their
-        first-call costs land at start-up, not mid-sequence."""
+        """Pay the process's first-call costs at start-up, not
+        mid-sequence (JAX system.py:279-286): the local-BA solve at both
+        problem sizes, through the routing point the live path uses (so a
+        mesh of more than one shard warms the sharded route), the dense
+        solvers behind two-view initialization, PnP and Sim3 RANSAC and
+        the GN steps (cuSOLVER's handles and kernels on a card), and on a
+        card the window_top2 kernel's library (built with nvcc at first
+        use)."""
         self.local_mapping.warm_programs()
+        warm_linalg(self.device)
+        if self.device.type == "cuda":
+            window_top2.empty_launch(self.device)
+            torch.cuda.synchronize(self.device)
 
     def map_changed(self) -> bool:
         """Reference: System::MapChanged (System.cc:282-293)."""
@@ -326,14 +381,15 @@ class System:
     @classmethod
     def from_saved_map(cls, path: str, cfg: SlamConfig, device,
                        localization_only: bool = True,
-                       enable_loop_closing: bool = True) -> "System":
+                       enable_loop_closing: bool = True,
+                       mesh: Optional[Mesh] = None) -> "System":
         """Start from a stored map (either package's npz): the first frame
         relocalizes into it, then tracking goes on, in localization mode
         unless asked otherwise. The file's vocabulary wins over the one
         the constructor loaded; its keyframes are indexed for BoW
         relocalization. With loop closing off the candidates are the 10
         newest keyframes."""
-        sysm = cls(cfg, device, enable_loop_closing=enable_loop_closing)
+        sysm = cls(cfg, device, enable_loop_closing=enable_loop_closing, mesh=mesh)
         m, voc = checkpoint.load_map(path, cfg, sysm.device)
         if sysm.loop_closing is not None and voc is None:
             voc = sysm.loop_closing.voc

@@ -62,7 +62,36 @@ frames, >= 90% of the mapped frames tracked with ATE < 0.05 m, the map
 unchanged, VO mode on at least 5 frames past the mapped region; one frame
 drawn with FrameDrawer. Where the machine reads PNG (natively or through PIL), the stereo
 KITTI driver runs 30 frames of a rendered KITTI tree (every frame tracked,
-ATE < 0.05 m). It prints which decoders the machine offers.
+ATE < 0.05 m). It prints which decoders the machine offers. Two fresh
+child processes relocalize into the saved map, one without and one after
+System.warmup(), and print the first relocalization's ms.
+
+Phase 10 runs the sharded solvers of parallel/ (in-process meshes of 4
+shards on the one card, as the JAX tests' 8 virtual CPU devices):
+- 10a: dba.distributed_bundle_adjust (dense Schur) at the full local-BA
+  bucket (64 cameras x 8192 points x 16384 observations),
+  sharded_ba.sharded_bundle_adjust on a global BA of 512 keyframes x 65536
+  points x 524288 observations and dpose_graph.distributed_pose_graph on
+  512 vertices x 7,396 edges, each held against its single-device solve
+  on the card (cam_T within 5e-4 / 2e-4, vertices within 1e-4, the JAX
+  tests' tolerances; the points seen from two cameras or more, the inlier
+  flags in slab order against the solve of the partitioned problem, and
+  the mean inlier chi2, at five times the gaps measured on the card) and timed
+  beside it (CUDA events, median of 5), with its collectives per
+  iteration;
+- 10b: two gloo ranks on cuda:0 (2 shards each; gloo's CUDA tensors cross
+  through host memory) run the global BA and the essential graph, then one
+  NCCL rank (world size 1, 4 shards) the global BA, each in a child
+  process joined by parallel/multihost.initialize; rank 0 is held against
+  the single-device solves on every output (its own blocks of the points
+  and the inlier flags);
+- 10c: phase 7's stereo orbit with System(cfg, "cuda", mesh=4 shards),
+  run on for 40 frames past phase 7's 240 along the same orbit: phase 7's
+  gates, the essential graph through dpose_graph, the global BA as a
+  _ShardedGbaJob (both one iteration a frame), at least one full-bucket
+  local BA through dba; it prints the local BAs by route, the frame on
+  which the global BA was applied and the worst frame with what the loop
+  closer advanced on it.
 
 Exits nonzero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
@@ -899,15 +928,18 @@ def orbit_trajectory(n_frames, r_path=8.0, frac=1.18):
     return np.stack(poses).astype(np.float32)
 
 
-def loop_run(label, dev, sensor_name):
+def loop_run(label, dev, sensor_name, mesh=None, n=240):
     """The 240-frame orbit with loop closing on; returns window_top2's
-    launches. Gates: tests/test_e2e_loop.py's."""
+    launches. Gates: tests/test_e2e_loop.py's. With a `mesh` of more than
+    one shard the System takes the sharded routes, and the run must show
+    them: the essential graph through dpose_graph, the global BA as a
+    _ShardedGbaJob, and the full-bucket local BAs through dba. `n` > 240
+    goes on along the orbit at the same step past its 1.18 laps."""
     import numpy as np
     from c_orb_slam_tpu_torch import config as tcfg
     from c_orb_slam_tpu_torch.system import System
 
     syn = _synthetic()
-    n = 240
     mono = sensor_name == "mono"
     cam = tcfg.CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480,
                             fps=10, bf=0.0 if mono else 500.0 * BASELINE)
@@ -919,21 +951,23 @@ def loop_run(label, dev, sensor_name):
     )
     K4 = (cam.fx, cam.fy, cam.cx, cam.cy)
     xw, inten, size = orbit_world()
-    traj = orbit_trajectory(n)
+    traj = orbit_trajectory(n, frac=1.18 * n / 240)
     if mono:
         frames = [syn.render_scene(xw, inten, size, T, K4) for T in traj]
         track = lambda s, i, f: s.track_monocular(f, i * 0.1)  # noqa: E731
     else:
         frames = [syn.render_stereo_pair(xw, inten, size, T, K4, BASELINE) for T in traj]
         track = lambda s, i, f: s.track_stereo(f[0], f[1], i * 0.1)  # noqa: E731
-    sysm = System(cfg, dev, enable_loop_closing=True)
+    sysm = System(cfg, dev, enable_loop_closing=True, mesh=mesh)
     sysm.warmup()
+    routes0 = dict(sysm.local_mapping.ba_routes)  # warmup's solves
     lc = sysm.loop_closing
     if lc.voc is None or lc.voc.n_words != 10**5:
         raise AssertionError(f"{label}: the shipped 10^5-word vocabulary did not load")
 
-    # Host ms of each advance_background call, by what it advanced.
-    chunks = {}
+    # Host ms of each advance_background call, by what it advanced, and
+    # the calls of each frame.
+    chunks, by_frame, frame_no = {}, {}, [0]
     advance = lc.advance_background
 
     def timed_advance():
@@ -942,7 +976,9 @@ def loop_run(label, dev, sensor_name):
                 else "gba" if lc.gba_job is not None else "idle")
         t0 = time.perf_counter()
         out = advance()
-        chunks.setdefault(kind, []).append((time.perf_counter() - t0) * 1000.0)
+        ms = (time.perf_counter() - t0) * 1000.0
+        chunks.setdefault(kind, []).append(ms)
+        by_frame.setdefault(frame_no[0], []).append([kind, round(ms, 3)])
         return out
 
     lc.advance_background = timed_advance
@@ -951,7 +987,7 @@ def loop_run(label, dev, sensor_name):
     # of them brings the trajectory home.
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
 
-    kf_ate = []
+    kf_ate, gba_jobs = [], []
 
     def around(name):
         orig = getattr(lc, name)
@@ -967,10 +1003,11 @@ def loop_run(label, dev, sensor_name):
             n_obs = int((sysm.map.kf_mp >= 0).sum())
             out = orig(*args, **kwargs)
             row = [name, before, ate(), n_obs]
-            if name == "_apply_gba":  # the solve's last error and damping
+            if name == "_apply_gba":  # the job's class, the solve's last error and damping
                 job = args[0]
-                row += [round(float(job.err), 1) if job.err is not None else None,
-                        float(job.lam)]
+                gba_jobs.append(type(job).__name__)
+                if job.err is not None:
+                    row += [round(float(job.err), 1), float(job.lam)]
             kf_ate.append(row)
             return out
 
@@ -981,6 +1018,7 @@ def loop_run(label, dev, sensor_name):
     loops_at, gba_at = [], []
 
     def on_frame(i):
+        frame_no[0] = i + 1
         if lc.n_loops_closed > len(loops_at):
             loops_at.append(i)
         if lc.n_gba_applied > len(gba_at):
@@ -1001,6 +1039,15 @@ def loop_run(label, dev, sensor_name):
     if loops_at:
         print(f"{label} correction frame {loops_at[0]}: {run['host_ms'][loops_at[0]]:.3f} ms "
               f"against the median frame's {med:.3f} ms (host per call)", flush=True)
+    host = run["host_ms"]
+    worst = max(range(WARMUP_FRAMES, n), key=lambda i: host[i])
+    marks = {k: [i for i, calls in sorted(by_frame.items()) if any(c[0] == k for c in calls)]
+             for k in ("correction.pg_build", "correction.arm_gba")}
+    print(f"{label} worst frame after warm-up {worst}: {host[worst]:.3f} ms host, median "
+          f"{med:.3f}; its advance_background calls (chunk, ms): {json.dumps(by_frame.get(worst))}"
+          f"; frames that built the essential graph and armed the global BA (frame, host ms): "
+          f"{json.dumps({k: [[i, round(host[i], 3)] for i in v] for k, v in marks.items()})}",
+          flush=True)
     if run["n_ok"] <= 0.9 * n:
         raise AssertionError(f"{label}: tracked only {run['n_ok']}/{n} frames")
     if lc.n_loops_closed < 1:
@@ -1014,6 +1061,19 @@ def loop_run(label, dev, sensor_name):
                              f"the loop event: the solve was not spread over frames")
     if not np.isfinite(sysm.map.pt_xyz[sysm.map.live_points()]).all():
         raise AssertionError(f"{label}: non-finite map points after the correction")
+    routes = {k: v - routes0[k] for k, v in sysm.local_mapping.ba_routes.items()}
+    live = [f for f in gba_at if f < n]
+    print(f"{label} mesh {sysm.mesh}: local BA solves by route {json.dumps(routes)}, essential "
+          f"graph by route {json.dumps(lc.pg_routes)}, global BA jobs applied {gba_jobs}, "
+          f"applied on frames {gba_at or 'none'} "
+          f"({'live, beside tracking' if live else 'in the shutdown drain'})", flush=True)
+    if mesh is not None and mesh.size > 1:
+        if lc.pg_routes["dpose_graph"] < 1 or lc.pg_routes["gn_step"]:
+            raise AssertionError(f"{label}: the essential graph did not take dpose_graph")
+        if "_ShardedGbaJob" not in gba_jobs or "_GbaJob" in gba_jobs:
+            raise AssertionError(f"{label}: the global BA was not a _ShardedGbaJob: {gba_jobs}")
+        if routes["dba"] < 1:
+            raise AssertionError(f"{label}: no full-bucket local BA went through dba")
     return run["launches"]
 
 
@@ -1203,6 +1263,27 @@ def phase9(dev):
             raise AssertionError("phase9: localization mode changed the map")
         if len([i for i in vo if i >= PHASE9_MAP]) < PHASE9_MIN_VO:
             raise AssertionError(f"phase9: VO mode on frames {vo} only past the mapped region")
+        # The first relocalization of a fresh process, without and with
+        # System.warmup() (which pays the solvers' first-call costs).
+        frame = os.path.join(d, "frame.npz")
+        first = range(PHASE9_LOC, PHASE9_LOC + 3)
+        np.savez(frame, image=np.stack([images[i] for i in first]),
+                 depth=np.stack([depths[i] for i in first]), t=np.asarray(first) / fps)
+        fresh = {}
+        for warm in ("0", "1"):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--fresh-reloc",
+                                map_path, settings, frame, warm],
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"phase9 fresh-process relocalization (warmup {warm}) "
+                                     f"exited {r.returncode}:\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            fresh[warm] = json.loads(r.stdout.strip().splitlines()[-1])
+        print(f"phase9 first relocalization of a fresh process into the saved map (host ms incl. "
+              f"sync): {fresh['0']['reloc_ms']:.1f} without warmup, {fresh['1']['reloc_ms']:.1f} "
+              f"after System.warmup() (which took {fresh['1']['warmup_ms']:.1f} ms); PR 5 measured "
+              f"2,817.6 ms without; {json.dumps(fresh)}", flush=True)
+        if not all(f["ok"] for f in fresh.values()):
+            raise AssertionError(f"phase9: a fresh process did not relocalize: {fresh}")
         fd = FrameDrawer(loc)
         fd.update(images[PHASE9_MAP - 1])
         img = fd.draw_frame()
@@ -1231,7 +1312,455 @@ def phase9(dev):
     return launches
 
 
+def _fresh_reloc(map_path, settings, frame, warm):
+    """A child of phase 9: System.from_saved_map in a fresh process,
+    System.warmup() when `warm` is "1", then the first three localization
+    frames, the first of which relocalizes; prints one JSON line of host
+    ms."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from c_orb_slam_tpu_torch import config as tcfg
+    from c_orb_slam_tpu_torch.system import System
+    from c_orb_slam_tpu_torch.tracking import TrackState
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = tcfg.load_yaml(settings, tcfg.Sensor.RGBD)
+    loc = System.from_saved_map(map_path, cfg, dev)
+    warm_ms = None
+    if warm == "1":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loc.warmup()
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1000.0
+    z = np.load(frame)
+    relocs = []
+    _timed(loc.tracker, "_relocalize", relocs)
+    for image, depth, t in zip(z["image"], z["depth"], z["t"]):
+        loc.track_rgbd(image, depth, float(t))
+    loc.tracker.flush_pending()
+    print(json.dumps({"warmup_ms": warm_ms, "reloc_ms": relocs[0][0] if relocs else None,
+                      "ok": bool(relocs) and loc.tracker.state == TrackState.OK}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the sharded solvers of parallel/ on the card.
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+# Shard against single device. cam_T: the JAX tests' tolerances
+# (tests/test_parallel.py, tests/test_sharded_ba.py), pose-graph vertices
+# 1e-4 (tests/test_sharded_ba.py). Points seen from two cameras or more
+# (max |difference|, m) and the mean inlier chi2 (relative): five times
+# the largest gap measured on an H100 (700 W), rounded up, since CUDA's
+# atomic segment sums vary from run to run (dba 7.2e-5 m and 6.6e-7;
+# sharded_ba over 4 in-process shards, 2 gloo ranks and 1 NCCL rank
+# 3.3e-6, 3.2e-6 and 6.6e-7 m, 9.1e-8). Inlier flags: none may differ
+# (none did).
+DBA_TOL = {"cam_T": 5e-4, "points": 5e-4, "inlier": 0, "chi2": 5e-6}
+SBA_TOL = {"cam_T": 2e-4, "points": 2e-5, "inlier": 0, "chi2": 5e-7}
+PG_TOL = {"verts": 1e-4}
+# The sizes: local BA at its full bucket (config.py local_ba_max_*: 64
+# camera, 8192 point and 16384 observation slots; 5461 live points seen 3
+# times each fill it, as a window's live rows fill a padded bucket; with
+# 2 views a point the camera chain's scale is too loosely held for two
+# float32 solves to agree), a global BA of 512 keyframes, an essential
+# graph of 512 vertices.
+DBA_SIZE = (64, 5461, 3, 8192, 16384)  # cameras, live points, views a point, slots
+SBA_SIZE = (512, 65536, 8)  # keyframes, points, views a point
+PG_VERTICES = 512
+
+
+def ba_problem(C, P, per_point, P_slots, O_slots, device, seed=0, spacing=0.3):
+    """A well-posed synthetic stereo BA problem (phase 7's rig: fx = 500,
+    baseline 0.2 m) at these widths: C cameras on a line `spacing` m apart
+    looking along +z (the first two fixed), P points 4-12 m in front, each
+    seen by `per_point` of the 2 * per_point cameras nearest to it, 0.5 px
+    of pixel noise, the start perturbed by 1 cm (cameras) and 3 cm
+    (points); padded with invalid slots to P_slots points and O_slots
+    observations."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.optim import ba
+
+    rng = np.random.default_rng(seed)
+    cx = spacing * np.arange(C)
+    px = rng.uniform(0, cx[-1], P)
+    pts = np.c_[px, rng.uniform(-2, 2, P), rng.uniform(4, 12, P)].astype(np.float32)
+    w = min(2 * per_point, C)
+    first = np.clip(np.round(px / spacing).astype(int) - w // 2, 0, C - w)
+    pick = np.sort(np.argsort(rng.random((P, w)), axis=1)[:, :per_point], axis=1)
+    obs_cam = (first[:, None] + pick).reshape(-1).astype(np.int32)
+    obs_pt = np.repeat(np.arange(P), per_point).astype(np.int32)
+    xc = pts[obs_pt] - np.c_[cx[obs_cam], np.zeros((len(obs_cam), 2))]
+    u = 500 * xc[:, 0] / xc[:, 2] + 320
+    uv = np.stack([u, 500 * xc[:, 1] / xc[:, 2] + 240, u - BASELINE * 500 / xc[:, 2]], 1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    cam_T = np.tile(np.eye(3, 4), (C, 1, 1))
+    cam_T[:, 0, 3] = -cx
+    cam_T[2:, :, 3] += rng.normal(0, 0.01, (C - 2, 3))
+    t = lambda a, dt=None: torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)  # noqa: E731
+
+    def pad(a, n):
+        return np.concatenate([a, np.zeros((n - len(a),) + a.shape[1:], a.dtype)])
+
+    O = len(obs_cam)
+    return ba.BAProblem(
+        cam_T=t(cam_T, np.float32), cam_fixed=t(np.arange(C) < 2), cam_valid=t(np.ones(C, bool)),
+        points=t(pad(pts + rng.normal(0, 0.03, pts.shape), P_slots), np.float32),
+        point_valid=t(np.arange(P_slots) < P), obs_cam=t(pad(obs_cam, O_slots)),
+        obs_pt=t(pad(obs_pt, O_slots)), obs_uv=t(pad(uv, O_slots), np.float32),
+        obs_stereo=t(np.arange(O_slots) < O), obs_inv_sigma2=t(np.ones(O_slots), np.float32),
+        obs_valid=t(np.arange(O_slots) < O),
+        K=t([500.0, 500.0, 320.0, 240.0], np.float32), bf=t(BASELINE * 500, np.float32),
+    )
+
+
+def ring_problem(C, P, per_point, device, seed=0, radius=10.0):
+    """A global-BA problem of an object scan, stereo on phase 7's rig: C
+    keyframes on a ring of `radius` m, all looking at its centre (the
+    first two fixed), P points in a ball of 3 m there, each seen by
+    `per_point` keyframes spread around the ring, 0.5 px of pixel noise,
+    the start perturbed by 1 cm (keyframes) and 3 cm (points). Every
+    keyframe shares points with keyframes all around the ring, so the
+    reduced camera system is well conditioned and 50 PCG iterations
+    converge: a float32 solve is then not dominated by rounding."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.optim import ba
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(C) / C
+    centre = np.stack([radius * np.cos(a), np.zeros(C), radius * np.sin(a)], 1)
+    z = -centre / radius
+    x = np.cross(np.tile([0.0, 1.0, 0.0], (C, 1)), z)
+    R = np.stack([x, np.tile([0.0, 1.0, 0.0], (C, 1)), z], 1)  # rows: camera axes
+    cam_T = np.concatenate([R, -(R @ centre[..., None])], 2)
+    d = rng.normal(size=(P, 3))
+    pts = 3.0 * d / np.linalg.norm(d, axis=1, keepdims=True) * rng.random((P, 1)) ** (1 / 3)
+    stride = C // per_point
+    obs_cam = ((rng.integers(0, C, (P, 1)) + stride * np.arange(per_point)
+                + rng.integers(0, stride, (P, per_point))) % C).reshape(-1).astype(np.int32)
+    obs_pt = np.repeat(np.arange(P), per_point).astype(np.int32)
+    xc = np.einsum("nij,nj->ni", R[obs_cam], pts[obs_pt]) + cam_T[obs_cam, :, 3]
+    u = 500 * xc[:, 0] / xc[:, 2] + 320
+    uv = np.stack([u, 500 * xc[:, 1] / xc[:, 2] + 240, u - BASELINE * 500 / xc[:, 2]], 1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    cam_T[2:, :, 3] += rng.normal(0, 0.01, (C - 2, 3))
+    O = len(obs_cam)
+    t = lambda v, dt=None: torch.from_numpy(np.ascontiguousarray(v, dt)).to(device)  # noqa: E731
+    return ba.BAProblem(
+        cam_T=t(cam_T, np.float32), cam_fixed=t(np.arange(C) < 2), cam_valid=t(np.ones(C, bool)),
+        points=t(pts + rng.normal(0, 0.03, pts.shape), np.float32),
+        point_valid=t(np.ones(P, bool)), obs_cam=t(obs_cam), obs_pt=t(obs_pt),
+        obs_uv=t(uv, np.float32), obs_stereo=t(np.ones(O, bool)),
+        obs_inv_sigma2=t(np.ones(O), np.float32), obs_valid=t(np.ones(O, bool)),
+        K=t([500.0, 500.0, 320.0, 240.0], np.float32), bf=t(BASELINE * 500, np.float32),
+    )
+
+
+def pg_problem(K, device, laps=4, span=7, across=2, radius=5.0):
+    """An essential graph of K keyframes on `laps` laps of a circle of
+    `radius` m (tests/test_loop_optim.py's circle; K / laps keyframes a
+    lap, the same places on every lap).
+    The estimate drifts a little at every step. Edges: the spanning tree
+    and the covisibility of keyframes up to `span` apart on one lap,
+    measuring the drifted estimate; and the covisibility of the same place
+    on other laps (keyframe k with k + m * K / laps, up to `across` apart),
+    measuring the truth, as loop closures do. Vertex 0 fixed."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.geometry import sim3
+    from c_orb_slam_tpu_torch.optim import pose_graph
+
+    a = 2 * np.pi * laps * np.arange(K) / K
+    R_wc = np.stack([np.stack([np.cos(-a), 0 * a, np.sin(-a)], -1), np.tile([0, 1, 0], (K, 1)),
+                     np.stack([-np.sin(-a), 0 * a, np.cos(-a)], -1)], 1)
+    c = np.stack([radius * np.cos(a), 0 * a, radius * np.sin(a)], -1)
+    R_cw = R_wc.transpose(0, 2, 1)
+    T = np.concatenate([R_cw, -(R_cw @ c[..., None])], 2)
+    gt = sim3.from_se3(torch.from_numpy(T.astype(np.float32)).double())
+    drift = sim3.exp(torch.tensor([0.002, 0.0, 0.001, 0.0, 0.0015, 0.0, 0.0006],
+                                  dtype=torch.float64))
+    est = [gt[0]]
+    for k in range(1, K):
+        est.append(sim3.compose(sim3.compose(drift, sim3.compose(gt[k], sim3.inverse(gt[k - 1]))),
+                                est[k - 1]))
+    est = torch.stack(est)
+    lap = K // laps
+    near = [(i, i + d) for d in range(1, span + 1) for i in range(K - d)]
+    far = sorted({(i, j) for i in range(K) for m in range(1, laps) for o in range(-across, across + 1)
+                  for j in [i + m * lap + o] if i < j < K})
+    ei = torch.tensor([e[0] for e in near + far])
+    ej = torch.tensor([e[1] for e in near + far])
+    src = torch.cat([est[ei[:len(near)]], gt[ei[len(near):]]])
+    dst = torch.cat([est[ej[:len(near)]], gt[ej[len(near):]]])
+    E = len(ei)
+    return pose_graph.PoseGraphProblem(
+        vertices=est.float().to(device), v_fixed=(torch.arange(K) == 0).to(device),
+        v_valid=torch.ones(K, dtype=torch.bool, device=device),
+        edge_i=ei.int().to(device), edge_j=ej.int().to(device),
+        edge_Sji=sim3.compose(dst, sim3.inverse(src)).float().to(device),
+        edge_weight=torch.ones(E, device=device),
+        edge_valid=torch.ones(E, dtype=torch.bool, device=device),
+    )
+
+
+def _seen_twice(p):
+    """(P,) bool numpy: points seen from two cameras or more (the only
+    points a solve pins down)."""
+    import numpy as np
+
+    ok = p.obs_valid.cpu().numpy()
+    pt, cam = p.obs_pt.cpu().numpy()[ok].astype(np.int64), p.obs_cam.cpu().numpy()[ok]
+    C = p.cam_T.shape[0]
+    pairs = np.unique(pt * C + cam)
+    return np.bincount(pairs // C, minlength=p.points.shape[0]) >= 2
+
+
+def _ba_out(cam_T, points, inlier, chi2):
+    return {"cam_T": cam_T, "points": points, "inlier": inlier, "chi2": chi2}
+
+
+def _phase10_solvers(dev):
+    """The three solves of phase 10 as (name, description, single-device
+    solve, sharded solve on a mesh, tolerances, points seen twice,
+    iterations, iteration's name), at the live configuration's iteration
+    counts. A solve returns a dict: cam_T, points, inlier (flags) and chi2
+    (the mean inlier chi2) of a BA, verts of a pose graph. The global BA's
+    single-device solve runs on the partitioned problem, so its inlier
+    flags are in the sharded solve's slab order."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch import config as tcfg
+    from c_orb_slam_tpu_torch.optim import ba, pose_graph
+    from c_orb_slam_tpu_torch.parallel import dba, dpose_graph, sharded_ba
+
+    opt = tcfg.OptimizerConfig()
+    lba = dict(iters_first=opt.local_ba_its_first, iters_second=opt.local_ba_its_second,
+               chi2_mono=opt.chi2_mono, chi2_stereo=opt.chi2_stereo, pcg_iters=opt.pcg_iters)
+    gba = dict(iters_first=opt.global_ba_its, iters_second=opt.global_ba_its,
+               chi2_mono=opt.chi2_mono, chi2_stereo=opt.chi2_stereo, pcg_iters=opt.pcg_iters)
+    pg = dict(iters=opt.essential_graph_its, pcg_iters=opt.pcg_iters, fix_scale=False)
+    p_l = ba_problem(*DBA_SIZE, dev, seed=1)
+    p_g = ring_problem(*SBA_SIZE, dev, seed=2)
+    p_gp = ba.BAProblem(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                          for x in sharded_ba.partition_problem(p_g, SHARDS)))
+    p_p = pg_problem(PG_VERTICES, dev)
+    O_l = p_l.obs_cam.shape[0]
+
+    def dba_single():
+        r = ba.bundle_adjust(p_l, schur="dense", **lba)
+        return _ba_out(r.cam_T, r.points, r.obs_inlier, r.final_chi2)
+
+    def dba_sharded(m):
+        r = dba.distributed_bundle_adjust(dba.pad_observations(p_l, m.size), m, schur="dense",
+                                          **lba)
+        return _ba_out(r.cam_T, r.points, r.obs_inlier[:O_l], r.final_chi2)
+
+    def sba_single():
+        r = ba.bundle_adjust(p_gp, schur="pcg", **gba)
+        return _ba_out(r.cam_T, r.points, r.obs_inlier, r.final_chi2)
+
+    def sba_sharded(m):
+        return _ba_out(*sharded_ba.sharded_bundle_adjust(p_g, m, **gba)[0])
+
+    return [
+        ("dba", f"{DBA_SIZE[0]} cameras x {DBA_SIZE[3]} point slots x {DBA_SIZE[4]} "
+         f"observation slots ({DBA_SIZE[1]} points seen {DBA_SIZE[2]} times), dense Schur",
+         dba_single, dba_sharded, DBA_TOL, _seen_twice(p_l),
+         lba["iters_first"] + lba["iters_second"], "LM iteration"),
+        ("sharded_ba", f"{SBA_SIZE[0]} keyframes x {SBA_SIZE[1]} points x "
+         f"{SBA_SIZE[1] * SBA_SIZE[2]} observations, PCG",
+         sba_single, sba_sharded, SBA_TOL, _seen_twice(p_g),
+         gba["iters_first"] + gba["iters_second"], "LM iteration"),
+        ("dpose_graph", f"{PG_VERTICES} vertices x {p_p.edge_i.shape[0]} edges",
+         lambda: {"verts": pose_graph.optimize_pose_graph(p_p, **pg)},
+         lambda m: {"verts": dpose_graph.distributed_pose_graph(p_p, m, **pg)},
+         PG_TOL, None, pg["iters"], "GN iteration"),
+    ]
+
+
+def _gaps(got, ref, seen):
+    """Sharded against single device, output by output: max |difference|
+    (cam_T, verts; points over those seen twice), the count of differing
+    inlier flags, the relative gap of the mean chi2. A rank of a process
+    group holds its own blocks of the points and the flags, which lead
+    the single solve's."""
+    import numpy as np
+
+    out = {}
+    for k, g in got.items():
+        g = np.asarray(g.cpu().numpy() if hasattr(g, "cpu") else g)
+        r = ref[k].cpu().numpy()
+        n = min(len(g), len(r)) if g.ndim else 0
+        if k == "chi2":
+            out[k] = float(abs(g - r) / abs(r))
+        elif k == "inlier":
+            out[k] = int((g[:n] != r[:n]).sum())
+        elif k == "points":
+            m = seen[:n]
+            out[k] = float(np.abs(g[:n][m] - r[:n][m]).max())
+        else:
+            out[k] = float(np.abs(g - r).max())
+        if not np.isfinite(g).all():
+            out[k] = float("inf")
+    return out
+
+
+def _check_gaps(label, gaps, tols):
+    bad = {k: (v, tols[k]) for k, v in gaps.items() if not v <= tols[k]}
+    if bad:
+        raise AssertionError(f"{label}: sharded and single-device solves differ beyond the "
+                             f"tolerance (gap, tolerance): {bad}")
+
+
+def phase10a(dev):
+    """The three sharded solvers on a mesh of SHARDS shards on one card,
+    each held against its single-device solve on the card (every output)
+    and timed (CUDA events, median of 5) beside it; collectives per
+    iteration. Returns the single-device results and the points seen
+    twice, for phase 10b."""
+    import torch
+    from c_orb_slam_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([dev] * SHARDS)
+    singles = {}
+    for name, what, single, sharded, tols, seen, iters, unit in _phase10_solvers(dev):
+        ref = single()
+        mesh.reset_counts()
+        got = sharded(mesh)
+        torch.cuda.synchronize()
+        counts = {k: [v[0] / iters, v[1] / iters] for k, v in mesh.counts.items()}
+        gaps = _gaps(got, ref, seen)
+        single_ms = _event_ms(single, 5)
+        sharded_ms = _event_ms(lambda: sharded(mesh), 5)
+        print(f"phase10a {name} ({what}) on {SHARDS} shards of {dev}: sharded against single "
+              f"device (gap, tolerance) {json.dumps({k: [v, tols[k]] for k, v in gaps.items()})} "
+              f"(max |difference|; points seen from two cameras or more; differing inlier "
+              f"flags; relative gap of the mean inlier chi2); sharded {sharded_ms:.3f} ms, "
+              f"single device {single_ms:.3f} ms (CUDA events, median of 5); collectives per "
+              f"{unit} (calls, elements): {json.dumps(counts)}", flush=True)
+        _check_gaps(f"phase10a {name}", gaps, tols)
+        singles[name] = (ref, seen)
+    return singles
+
+
+def _phase10_rank(role, rank, world, store, out, device, sizes):
+    """One rank of phase 10b (a child process): join the group, run the
+    sharded solves on a process-group mesh of SHARDS // world shards a
+    rank on `device`, at the parent's problem `sizes`; rank 0 writes what
+    it holds (cam_T, its blocks of the points and the inlier flags, the
+    mean chi2; the vertices)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    global DBA_SIZE, SBA_SIZE, PG_VERTICES
+    DBA_SIZE, SBA_SIZE, PG_VERTICES = (tuple(x) if isinstance(x, list) else x
+                                       for x in json.loads(sizes))
+    sys.path.insert(0, HERE)
+    from c_orb_slam_tpu_torch.parallel import multihost
+    from c_orb_slam_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    joined = multihost.initialize(f"file://{store}", world, rank, backend=role, timeout_s=300)
+    try:
+        if joined != (world > 1) or dist.get_backend() != role:
+            raise RuntimeError(f"rank {rank}: initialize -> {joined}, {dist.get_backend()}")
+        mesh = make_mesh([dev] * (SHARDS // world))
+        res = {}
+        for name, _, _, sharded, *_ in _phase10_solvers(dev):
+            if role == "nccl" and name != "sharded_ba":
+                continue
+            if name == "dba":  # the local BA is not a process-group solve in the System
+                continue
+            t0 = time.perf_counter()
+            for k, v in sharded(mesh).items():
+                res[f"{name}.{k}"] = v.cpu().numpy()
+            res[name + ".ms"] = (time.perf_counter() - t0) * 1000.0
+        if multihost.is_primary():
+            np.savez(os.path.join(out, f"{role}.npz"), counts=json.dumps(mesh.counts), **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase10b(dev, singles):
+    """Two gloo ranks on cuda:0 (2 shards each) run sharded_bundle_adjust
+    and distributed_pose_graph; then one NCCL rank (world size 1, 4
+    shards) runs sharded_bundle_adjust. Rank 0's results are held against
+    the single-device solves of phase 10a: every output, its own blocks
+    of the points and the inlier flags."""
+    import tempfile
+
+    import numpy as np
+
+    tols = {"sharded_ba": SBA_TOL, "dpose_graph": PG_TOL}
+    with tempfile.TemporaryDirectory(prefix="phase10b_") as d:
+        for role, world in (("gloo", 2), ("nccl", 1)):
+            store = os.path.join(d, f"{role}.store")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase10-rank", role, str(r),
+                 str(world), store, d, str(dev), json.dumps([DBA_SIZE, SBA_SIZE, PG_VERTICES])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for r in range(world)]
+            try:
+                for r, pr in enumerate(procs):
+                    out, _ = pr.communicate(timeout=600)
+                    if pr.returncode != 0:
+                        raise AssertionError(f"phase10b {role} rank {r} exited {pr.returncode}:\n"
+                                             f"{out[-3000:]}")
+            finally:
+                for pr in procs:
+                    if pr.poll() is None:
+                        pr.kill()
+                        pr.wait()
+            z = np.load(os.path.join(d, f"{role}.npz"))
+            rows = []
+            for name, tol in tols.items():
+                got = {k.split(".", 1)[1]: z[k] for k in z.files
+                       if k.startswith(name + ".") and not k.endswith(".ms")}
+                if not got:
+                    continue
+                ref, seen = singles[name]
+                gaps = _gaps(got, ref, seen)
+                rows.append(f"{name} rank 0 against single device (gap, tolerance) "
+                            f"{json.dumps({k: [v, tol[k]] for k, v in gaps.items()})}, "
+                            f"{float(z[name + '.ms']):.1f} ms")
+                _check_gaps(f"phase10b {role} {name}", gaps, tol)
+            print(f"phase10b {role}, {world} rank(s) on {dev}, {SHARDS // world} shards a rank: "
+                  f"{'; '.join(rows)}; rank 0's collectives (calls, elements): "
+                  f"{str(z['counts'])}; {time.perf_counter() - t0:.1f} s with process start",
+                  flush=True)
+
+
+def phase10c(dev):
+    """Phase 7's stereo orbit with System(..., mesh=Mesh([dev] * SHARDS)):
+    phase 7's gates, and the sharded routes taken. 280 frames, 40 past
+    phase 7's end along the same orbit: the essential graph (20 GN
+    iterations) and the global BA (20 LM iterations) advance one
+    iteration a frame after the loop event near frame 205, so the global
+    BA's apply lands during the run, beside tracking, not in the shutdown
+    drain."""
+    from c_orb_slam_tpu_torch.parallel.mesh import Mesh
+
+    return loop_run("phase10c", dev, "stereo", mesh=Mesh([dev] * SHARDS), n=280)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--phase10-rank"]:  # a child of phase 10b
+        role, rank, world, store, out, device, sizes = sys.argv[2:9]
+        return _phase10_rank(role, int(rank), int(world), store, out, device, sizes)
+    if sys.argv[1:2] == ["--fresh-reloc"]:  # a child of phase 9
+        return _fresh_reloc(*sys.argv[2:6])
     try:
         import torch
     except ImportError as e:
@@ -1261,6 +1790,11 @@ def main() -> int:
             if num == 6:
                 phase6_loop(dev)
             print(f"phase{num} took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        singles = phase10a(dev)
+        phase10b(dev, singles)
+        launches += phase10c(dev)
+        print(f"phase10 took {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 

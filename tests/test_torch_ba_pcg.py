@@ -16,6 +16,7 @@ import torch
 
 from c_orb_slam_tpu.optim import ba as jba
 from c_orb_slam_tpu_torch.optim import ba as tba
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh
 
 from test_torch_optim import _ba_problem
 
@@ -78,11 +79,12 @@ def test_schur_matvec_equals_dense_schur_in_float64():
     S = Hcc - W Hpp^-1 Wt applied to x."""
     tp = _tp(_arrs("stereo"), torch.float64)
     r, Jc, Jp, w, _ = tba._obs_terms(tp, tp.cam_T, tp.points, True, 5.991, 7.815)
-    Hcc, Hpp_inv, _, _ = tba._assemble(tp, r, Jc, Jp, w, 1e-4)
-    free = (tp.cam_valid & ~tp.cam_fixed).to(torch.float64)
+    mesh = Mesh([torch.device("cpu")])  # the solvers' one-shard mesh
+    nrm = tba._normal(mesh, [tp], [(r, Jc, Jp, w)], [torch.tensor(1e-4)], dense=False)[0]
+    Hcc, Hpp_inv, free = nrm.Hcc, nrm.Hpp_inv, nrm.free
     C, P = tp.cam_T.shape[0], tp.points.shape[0]
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(C, 6)))
-    got = tba._schur_matvec(tp, Jc, Jp, w, Hcc, Hpp_inv, x, free)
+    got = tba._schur_matvec(mesh, [tp], [(r, Jc, Jp, w)], [nrm], [x])[0]
     B = (Jc * w[:, None, None]).transpose(1, 2) @ Jp
     W = torch.zeros(C, P, 6, 3, dtype=torch.float64)
     W.index_put_((tp.obs_cam.long(), tp.obs_pt.long()), B, accumulate=True)

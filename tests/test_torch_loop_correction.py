@@ -31,6 +31,7 @@ from c_orb_slam_tpu.system import System as JaxSystem
 from c_orb_slam_tpu_torch import config as tcfg
 from c_orb_slam_tpu_torch.geometry import np_se3 as t_np_se3, sim3 as tsim3
 from c_orb_slam_tpu_torch.loop_closing import LoopClosing as TorchLoopClosing
+from c_orb_slam_tpu_torch.parallel.mesh import Mesh
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState as TorchMapState
 from c_orb_slam_tpu_torch.system import System as TorchSystem
 
@@ -52,7 +53,7 @@ TORCH = types.SimpleNamespace(
     tensor=lambda a: torch.from_numpy(np.ascontiguousarray(a)),
     system=lambda cfg, **kw: TorchSystem(cfg, CPU, **kw),
     mapstate=lambda cfg: TorchMapState(cfg, compute_device=CPU),
-    loop_closing=lambda cfg, mp: TorchLoopClosing(cfg, mp, CPU, vocabulary=None),
+    loop_closing=lambda cfg, mp: TorchLoopClosing(cfg, mp, CPU, Mesh([CPU]), vocabulary=None),
 )
 BOTH = (JAX, TORCH)
 
