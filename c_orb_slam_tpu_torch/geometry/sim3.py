@@ -161,5 +161,5 @@ def log(S: torch.Tensor) -> torch.Tensor:
     phi = so3.quat_log(quat(S))
     sigma = S[..., 7]
     W = _calc_W(phi, sigma)
-    rho = torch.linalg.solve(W, translation(S)[..., None])[..., 0]
+    rho = torch.linalg.solve_ex(W, translation(S)[..., None])[0][..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -154,10 +154,22 @@ def _sim3_widen_program(kf_pose_all, kf_desc_all, kf_valid_all, kf_xy_all,
     return m21.idx, m21.valid, m12.idx, m12.valid
 
 
+def _pg_finalize_refs(ref_kf, moved_by, kf_valid, fallback):
+    """The vertex each point is remapped through after the essential
+    graph: the group keyframe that moved it in the Sim3 propagation where
+    one did, else its reference keyframe (reference: Optimizer.cc:1021-1027,
+    mnCorrectedReference); a dead reference falls back to `fallback`.
+    The JAX package takes the reference keyframe for every point, so a
+    propagated point referenced outside the group is corrected twice there
+    (its loop_closing.py:1376)."""
+    ref = np.where(moved_by >= 0, moved_by, ref_kf)
+    return np.where((ref >= 0) & kf_valid[np.maximum(ref, 0)], ref, fallback)
+
+
 def _pg_finalize_program(verts_old, verts_new, ref_idx, xyz_sel):
     """Post-essential-graph point remap + SE3 recovery:
-    x' = S_new^-1 (S_old x) via each point's reference keyframe
-    (reference: Optimizer.cc:1013-1043), poses t/s (:991-1010)."""
+    x' = S_new^-1 (S_old x) via each point's vertex (_pg_finalize_refs;
+    reference: Optimizer.cc:1013-1043), poses t/s (:991-1010)."""
     S_old = verts_old[ref_idx]
     S_new = verts_new[ref_idx]
     x_new = sim3.apply(sim3.inverse(S_new), sim3.apply(S_old, xyz_sel))
@@ -179,7 +191,7 @@ class _CorrectionJob:
     is stopped, Tracking.cc:992-996)."""
 
     def __init__(self, kf, loop_kf, group, loop_pts, S_before_arr,
-                 corrected, S_cw_corr):
+                 corrected, S_cw_corr, moved):
         self.stage = "fuse"
         self.kf = kf
         self.loop_kf = loop_kf
@@ -188,6 +200,9 @@ class _CorrectionJob:
         self.S_before_arr = S_before_arr  # host (Nk, 8) pre-correction
         self.corrected = corrected  # {kf_slot: (8,) corrected Sim3}
         self.S_cw_corr = S_cw_corr  # host (8,)
+        # The points the propagation moved: (ids, the group keyframe that
+        # moved each, their serials), for the post-essential-graph remap.
+        self.moved = moved
         self.fuse_specs = []  # pending blocks: lists of keyframe slots
         self.fuse_blocks = []  # dispatched: [(real_gs, pts_p, future)]
         self.fuse_next = 0  # next dispatched block to apply
@@ -959,6 +974,10 @@ class LoopClosing:
         # (detection is paused), but direct callers (dryrun) may re-enter.
         while self.correction_job is not None:
             self._advance_correction(force=True)
+        # A global BA of an earlier loop still in flight is aborted now,
+        # before the map moves (reference: LoopClosing.cc:411-423); the
+        # JAX package keeps it frozen until this correction arms its own.
+        self.gba_job = None
         if self.on_before_correction is not None:
             self.on_before_correction()
         _t0 = time.perf_counter()
@@ -1013,6 +1032,7 @@ class LoopClosing:
             self.mapper.paused = True
         job = _CorrectionJob(
             kf, loop_kf, group, loop_pts, S_all, corrected, S_cw_corr,
+            (sel, garr[owner[sel]], mp.pt_serial[sel].copy()),
         )
         self._dispatch_fuse_blocks(job)
         self.correction_job = job
@@ -1141,9 +1161,8 @@ class LoopClosing:
         if job.stage == "arm_gba":
             self.loop_edges.append((job.loop_kf, job.kf))
             # Arm the background snapshot-epoch global BA (:579 spawns
-            # the GBA thread; a running job is aborted first like
-            # :411-423 — any pre-correction job was already dropped).
-            self.gba_job = None
+            # the GBA thread; an earlier job was aborted when this
+            # correction started, :411-423).
             self._start_gba()
             # Release the mapper (reference: :582).
             if self.mapper is not None:
@@ -1242,16 +1261,12 @@ class LoopClosing:
         mp = self.map
         pts_p = np.asarray(mp.live_points(), np.int64)
         live = job.live_arr
-        # Every point is remapped through its reference keyframe, as the
-        # JAX package does. A point that a group keyframe already moved in
-        # the propagation step, and whose reference keyframe lies outside
-        # the group, gets the correction twice (ROADMAP.md queue 3,
-        # hazard g: a known fault shared with the JAX package).
-        ref = mp.pt_ref_kf[pts_p]
-        ref = np.where(
-            (ref >= 0) & mp.kf_valid[np.maximum(ref, 0)], ref,
-            live[0] if len(live) else 0,
-        )
+        moved, movers, serials = job.moved
+        same = mp.pt_serial[moved] == serials
+        moved_by = np.full(mp.pt_xyz.shape[0], -1, np.int64)
+        moved_by[moved[same]] = movers[same]
+        ref = _pg_finalize_refs(mp.pt_ref_kf[pts_p], moved_by[pts_p], mp.kf_valid,
+                                live[0] if len(live) else 0)
         x_new, T_all = _pg_finalize_program(
             job.pg_problem.vertices, job.verts,
             *to_device(self.device, ref.astype(np.int64), mp.pt_xyz[pts_p]),

@@ -60,7 +60,7 @@ def _fundamental_from_poses(T1, T2, K):
     )
     Km = torch.eye(3, dtype=T1.dtype, device=T1.device)
     Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2] = K[0], K[1], K[2], K[3]
-    Kinv = torch.linalg.inv(Km)
+    Kinv = torch.linalg.inv_ex(Km)[0]
     return Kinv.T @ tx @ R @ Kinv
 
 

@@ -165,9 +165,43 @@ def _dense_solve(Wpc, Hcc, Hpp_inv, gc, gp, free_cam):
     free6 = free_cam.repeat_interleave(6)
     S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
     rhs = rhs * free_cam[:, None]
-    L = torch.linalg.cholesky_ex(S)[0]  # SPD after masking
+    # SPD after masking in exact arithmetic. In float32 the pivot of a
+    # camera left alone with points it sees once (their Hpp rank 2 plus
+    # the damping) can cancel to a non-positive value: then the step is
+    # NaN, as JAX's cho_factor gives, so the LM test rejects it and raises
+    # the damping. No readback.
+    L, info = torch.linalg.cholesky_ex(S)
+    _count_failed(info)
     dc = torch.cholesky_solve(rhs.reshape(C * 6, 1), L).reshape(C, 6)
+    dc = torch.where(info == 0, dc, float("nan"))
     return dc * free_cam[:, None]
+
+
+# Dense-Schur factorizations that failed since the last reset, one int64
+# counter on each device that solved, added to on the device (a replicated
+# solve counts once per device that computes it).
+_failed: dict[torch.device, torch.Tensor] = {}
+
+
+def _count_failed(info: torch.Tensor):
+    n = _failed.get(info.device)
+    if n is None:
+        n = _failed[info.device] = torch.zeros((), dtype=torch.int64, device=info.device)
+    n.add_((info != 0).to(torch.int64))
+
+
+def reset_failed_factorizations():
+    _failed.clear()
+
+
+def failed_factorizations(device) -> int:
+    """Dense-Schur LM iterations on `device` whose Cholesky failed since
+    the last reset (one readback)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    n = _failed.get(d)
+    return 0 if n is None else int(n)
 
 
 def _w_times(p: BAProblem, Jc, Jp, w, y):
@@ -252,7 +286,7 @@ def _solve_cameras(mesh: Mesh, ps, terms, nrm, dense: bool, pcg_iters: int):
     Wy = _w_y(mesh, ps, terms,
               mesh.replicated(lambda n: (n.Hpp_inv @ n.gp[..., None])[..., 0], nrm))
     rhs = mesh.replicated(lambda n, wy: -(n.gc - wy) * n.free[:, None], nrm, Wy)
-    Hcc_inv = mesh.replicated(lambda n: torch.linalg.inv(n.Hcc), nrm)
+    Hcc_inv = mesh.replicated(lambda n: torch.linalg.inv_ex(n.Hcc)[0], nrm)
     return pcg(
         lambda x: _schur_matvec(mesh, ps, terms, nrm, x),
         lambda v: mesh.replicated(

@@ -134,7 +134,8 @@ class GraphSolve:
         g = mesh.replicated(lambda g_, lv: g_ * lv,
                             mesh.psum(mesh.per_shard(grad_part, t, self.verts)), live)
         Hdiag_inv = mesh.replicated(
-            lambda h: torch.linalg.inv(h + 1e-5 * torch.eye(7, dtype=h.dtype, device=h.device)),
+            lambda h: torch.linalg.inv_ex(
+                h + 1e-5 * torch.eye(7, dtype=h.dtype, device=h.device))[0],
             mesh.psum(mesh.per_shard(hdiag_part, t, self.verts)))
 
         def matvec(x):

@@ -106,7 +106,7 @@ def optimize_sim3(
             H = H * dof[:, None] * dof[None, :] + torch.diag(1.0 - dof)
             g = g * dof
             H = H + 1e-6 * eye7
-            xi = torch.linalg.solve(H, g)
+            xi = torch.linalg.solve_ex(H, g)[0]
             S = sim3.compose(sim3.exp(xi), S)
         return S
 

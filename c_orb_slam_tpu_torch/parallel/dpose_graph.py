@@ -58,9 +58,11 @@ def distributed_pose_graph(
     pcg_iters: int = 50,
     fix_scale: bool = False,
 ) -> torch.Tensor:
-    """Edge-sharded essential-graph solve. Returns the optimized (K, 8)
-    Sim3 vertices on the first local shard's device."""
-    solve = graph_solve(p, mesh if mesh is not None else make_mesh(), fix_scale)
+    """Edge-sharded essential-graph solve over `mesh` (default: the
+    ``make_mesh`` of the problem's device type). Returns the optimized
+    (K, 8) Sim3 vertices on the first local shard's device."""
+    mesh = mesh if mesh is not None else make_mesh(device_type=p.vertices.device.type)
+    solve = graph_solve(p, mesh, fix_scale)
     for _ in range(iters):
         solve.step(pcg_iters)
     return solve.vertices

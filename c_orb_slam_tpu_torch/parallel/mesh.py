@@ -211,18 +211,20 @@ def make_mesh(devices: Optional[Sequence] = None, device_type: Optional[str] = N
     """The default mirrors ``jax.devices()``. With ``torch.distributed``
     initialized: every rank, each with one shard on its current device (a
     process-group mesh). Otherwise every visible device of
-    ``device_type`` (default: ``cuda`` when a card is visible, else
-    ``cpu``) in process; the CPU is one device, so a CPU run gets one
-    shard. ``devices`` names the local shards explicitly, repeats allowed.
-    ``group=False`` asks for an in-process mesh whatever the state of
-    ``torch.distributed`` (``System``'s default), ``group=True`` for a
-    process-group mesh.
+    ``device_type`` (default ``cuda``; with no card visible that raises,
+    and a CPU mesh is asked for with ``device_type="cpu"``) in process;
+    the CPU is one device, so a CPU run gets one shard. ``devices`` names
+    the local shards explicitly, repeats allowed. ``group=False`` asks
+    for an in-process mesh whatever the state of ``torch.distributed``
+    (``System``'s default), ``group=True`` for a process-group mesh.
     """
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if group is None:
         group = dist.is_available() and dist.is_initialized()
     if devices is None:
+        device_type = device_type or "cuda"
+        if device_type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError('make_mesh: no CUDA device is visible; pass device_type="cpu" '
+                               'for a mesh on the CPU')
         if device_type == "cuda":
             devices = ([torch.device("cuda", torch.cuda.current_device())] if group
                        else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])

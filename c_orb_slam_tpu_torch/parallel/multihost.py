@@ -3,9 +3,10 @@
 Counterpart of c_orb_slam_tpu/parallel/multihost.py (:45-91), where
 ``jax.distributed.initialize`` joins the JAX runtime. Here
 ``torch.distributed.init_process_group`` joins the ranks; afterwards
-``parallel.mesh.make_mesh()`` is a process-group mesh over every rank, and
-the solvers in parallel/{sharded_ba,dpose_graph,dba}.py run their
-collectives across them with no further change.
+``parallel.mesh.make_mesh()`` is a process-group mesh over every rank (one
+card a rank; ``make_mesh(device_type="cpu")`` for CPU ranks), and the
+solvers in parallel/{sharded_ba,dpose_graph,dba}.py run their collectives
+across them with no further change.
 
 Usage (one call at process start):
 

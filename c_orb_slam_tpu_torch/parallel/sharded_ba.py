@@ -201,7 +201,7 @@ def _iteration(mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo, 
     Wy_s = mesh.psum_scatter(mesh.per_shard(lambda p, t, b: w_times_local(p, t, b, b.gp),
                                             ps, terms, blk))
     rhs_s = mesh.per_shard(lambda b, wy, fs: -(b.gc_s - wy) * fs, blk, Wy_s, free_s)
-    Hcc_inv_s = mesh.per_shard(lambda b: torch.linalg.inv(b.Hcc_s), blk)
+    Hcc_inv_s = mesh.per_shard(lambda b: torch.linalg.inv_ex(b.Hcc_s)[0], blk)
     precond = lambda v: mesh.per_shard(  # noqa: E731
         lambda hi, v_, fs: (hi @ v_[..., None])[..., 0] * fs, Hcc_inv_s, v, free_s)
     pdot = lambda a, b: mesh.psum(mesh.per_shard(lambda a_, b_: (a_ * b_).sum(), a, b))  # noqa: E731
@@ -247,7 +247,8 @@ def sharded_bundle_adjust(
     chi2_mono: float = 5.991,
     chi2_stereo: float = 7.815,
 ):
-    """Two-stage robust BA with the map sharded over `mesh`.
+    """Two-stage robust BA with the map sharded over `mesh` (default: the
+    ``make_mesh`` of the problem's device type).
 
     Returns ``(cam_T (C',3,4), points, obs_inlier, mean_chi2),
     partitioned_problem``: cam_T and mean_chi2 replicated, points and
@@ -256,7 +257,7 @@ def sharded_bundle_adjust(
     local shard's device. Point ids are preserved (padding only appended),
     so ``points[:P0]`` lines up with the input problem.
     """
-    mesh = mesh if mesh is not None else make_mesh()
+    mesh = mesh if mesh is not None else make_mesh(device_type=p.points.device.type)
     solve, pp = map_sharded_solve(p, mesh, iters_first, iters_second, pcg_iters, chi2_mono,
                                   chi2_stereo)
     cam_T, points, inlier, mean_chi2 = solve.run().result()

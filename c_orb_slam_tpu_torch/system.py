@@ -75,8 +75,8 @@ def warm_linalg(device: torch.device):
         for n in (6, 7):
             m = spd(n, torch.float32)
             torch.linalg.solve_ex(m, m[..., :1])
-            torch.linalg.solve(m, m[..., 0])
-            torch.linalg.inv(m)
+            torch.linalg.solve_ex(m, m[..., 0])
+            torch.linalg.inv_ex(m)
         m = spd(96, torch.float32)
         torch.cholesky_solve(m[..., :1], torch.linalg.cholesky_ex(m)[0])
     if device.type == "cuda":
@@ -287,16 +287,22 @@ class System:
         """Settle every pipeline: the loop closer first (an in-flight
         staged correction holds the mapper paused), then mapping (whose
         finished keyframes may arm a NEW loop event), iterating to a
-        fixed point."""
+        fixed point. Raises RuntimeError, naming what is still busy, when
+        8 rounds do not settle it (the JAX package returns silently), so
+        save_map never writes an unsettled map."""
         self.tracker.flush_pending()
         for _ in range(8):
             if self.loop_closing is not None:
                 self.loop_closing.drain()
             self.local_mapping.drain()
-            if self.local_mapping.queue_len() == 0 and (
-                self.loop_closing is None or self.loop_closing.idle()
-            ):
-                break
+            busy = [name for name, idle in (
+                ("local mapping", self.local_mapping.queue_len() == 0),
+                ("loop closing", self.loop_closing is None or self.loop_closing.idle()),
+            ) if not idle]
+            if not busy:
+                return
+        raise RuntimeError(f"the pipelines did not settle in 8 drain rounds: "
+                           f"{' and '.join(busy)} still busy")
 
     def warmup(self):
         """Pay the process's first-call costs at start-up, not

@@ -36,7 +36,12 @@ Phase 6 runs the two-view and PnP RANSAC solvers on CUDA and on the CPU
 with the same inputs and injected first-round draws, and holds the CUDA
 results (cuSOLVER eigh/svd) to the CPU ones; then the loop path's solvers
 the same way: solve_sim3_ransac (injected draw), optimize_sim3, one
-pose_graph.gn_step and one implicit-Schur (PCG) ba.lm_step.
+pose_graph.gn_step and one implicit-Schur (PCG) ba.lm_step; then the
+dense solves on singular input: a local BA at the full bucket whose
+float32 dense-Schur Cholesky fails must reject its LM step on both
+devices (state unchanged, damping x 4), and every LU call of the port on
+a singular input must give the same non-finite entries on CUDA as on the
+CPU, and as the JAX package (recorded in SINGULAR_JAX).
 
 Phases 7 and 8 close a loop end to end with System(enable_loop_closing=
 True) and the shipped 10^5-word vocabulary, on the outward-facing orbit
@@ -48,6 +53,8 @@ after frame 200:
   global BA applied, and, where it was applied during the run, at least 5
   frames after the loop event (the gates of tests/test_e2e_loop.py);
 - phase 8: monocular, free scale: the same gates on the scale-aligned ATE.
+Both print the dense-Schur LM iterations whose factorization failed,
+counted on the device and read once at the end of the run (10c too).
 
 Phase 9 drives the product surface at TUM RGB-D geometry (blob_world(400,
 seed=5), 640x480, 1000 features, 8 levels, DepthMapFactor 5000): it
@@ -893,6 +900,165 @@ def phase6_loop(dev):
         raise AssertionError("ba.lm_step (PCG): CUDA differs from the CPU or did not descend")
 
 
+def zero_pivot(batch, n, seed=0):
+    """`batch` regular float32 matrices, the first one singular: its last
+    row and column zero (a zero pivot whatever the pivoting)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(batch, n, n)).astype(np.float32)
+    a = a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+    a[0, -1, :] = 0
+    a[0, :, -1] = 0
+    return a
+
+
+def singular_ops():
+    """The LU calls of the port whose matrix no argument can make singular,
+    each as written at its site ("inv": inv_ex, "solve": solve_ex against
+    one right-hand side), on a matrix of the site's shape with an exactly
+    zero pivot: (site, op, matrices)."""
+    return [
+        ("ops/twoview.py _motions_from_h inv_ex(K)", "inv", zero_pivot(1, 3)),
+        ("ops/twoview.py initialize inv_ex(T2)", "inv", zero_pivot(1, 3, seed=1)),
+        ("mapping.py _fundamental_from_poses inv_ex(K)", "inv", zero_pivot(1, 3, seed=2)),
+        ("optim/pose_graph.py GraphSolve inv_ex", "inv", zero_pivot(8, 7)),
+        ("optim/sim3_opt.py optimize_sim3 solve_ex", "solve", zero_pivot(1, 7, seed=3)),
+        ("geometry/sim3.py log solve_ex", "solve", zero_pivot(5, 3, seed=4)),
+    ]
+
+
+def singular_op(op, a, device):
+    """One of singular_ops' calls on `device`: the result as float64 numpy."""
+    import numpy as np
+    import torch
+
+    A = torch.from_numpy(a).to(device)
+    if op == "inv":
+        out = torch.linalg.inv_ex(A)[0]
+    else:
+        b = torch.from_numpy(np.random.default_rng(1).normal(size=a.shape[:-1] + (1,))
+                             .astype(np.float32)).to(device)
+        out = torch.linalg.solve_ex(A, b)[0]
+    return out.cpu().double().numpy()
+
+
+# The JAX package's result on singular_ops' inputs (jnp.linalg.inv / solve,
+# float32, on the CPU): (NaN, +inf, -inf) entries. tests/
+# test_torch_singular_solves.py holds this record to JAX.
+SINGULAR_JAX = {
+    "ops/twoview.py _motions_from_h inv_ex(K)": (8, 1, 0),
+    "ops/twoview.py initialize inv_ex(T2)": (8, 1, 0),
+    "mapping.py _fundamental_from_poses inv_ex(K)": (8, 1, 0),
+    "optim/pose_graph.py GraphSolve inv_ex": (48, 1, 0),
+    "optim/sim3_opt.py optimize_sim3 solve_ex": (6, 0, 1),
+    "geometry/sim3.py log solve_ex": (2, 1, 0),
+}
+
+
+def phase6_singular(dev):
+    """The repaired dense solves, CUDA against the CPU. (1) The non-PD
+    local BA of tests/test_torch_optim.py at the full local-BA bucket: the
+    float32 dense-Schur Cholesky fails and the LM step is rejected on both
+    devices, as the JAX package's NaN step is (state unchanged, damping x
+    4). (2) Each LU call on a singular input: a BA step at zero damping
+    beside a camera with no valid observation (PCG, and the map-sharded
+    iteration on SHARDS shards), a pose solve at zero damping with no valid
+    match, a rank-2 homography score, and singular_ops: the same
+    non-finite entries on CUDA as on the CPU, and as the JAX package
+    gives (SINGULAR_JAX, or its outcome: a rejected step, a NaN pose)."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.ops import twoview
+    from c_orb_slam_tpu_torch.optim import ba, pose_opt
+    from c_orb_slam_tpu_torch.parallel import sharded_ba
+    from c_orb_slam_tpu_torch.parallel.mesh import Mesh
+
+    def rejected(label, p, out, lam):
+        if not (torch.equal(out[0], p.cam_T) and torch.equal(out[1], p.points)
+                and float(out[2]) == np.float32(lam) * 4):
+            raise AssertionError(f"{label}: the step was not rejected with the damping x 4")
+
+    lam = 1e-4  # the clean stage's first damping: the parent port accepted this step
+    for device in ("cpu", dev):
+        p = ba.sort_by_point(unobserved_camera_problem(device, n_single=20))
+        err = ba.stage_error(p, use_huber=False)
+        ba.reset_failed_factorizations()
+        out = ba.lm_step(p, torch.tensor(lam, device=device), err, use_huber=False)
+        fails = ba.failed_factorizations(device)
+        rejected(f"non-PD dense Schur on {device}", p, out, lam)
+        ms = "" if device == "cpu" else "{:.3f} ms per call on the card".format(_cuda_ms(
+            lambda: ba.lm_step(p, torch.tensor(lam, device=device), err, use_huber=False)))
+        print(f"phase6 non-PD dense-Schur local BA on {device} (64 x 8192 x 16384 slots, 24 "
+              f"cameras, the last unobserved, 20 points left with one free view, damping "
+              f"{lam:.3e}): factorizations failed {fails}, step rejected, damping "
+              f"{float(out[2]):.3e}, error {float(out[3]):.1f} = {float(err):.1f}; {ms}",
+              flush=True)
+        if fails != 1:
+            raise AssertionError(f"non-PD dense Schur on {device}: {fails} failed factorizations "
+                                 f"counted, not 1")
+
+    # A step at zero damping beside a camera with no valid observation: its
+    # Hcc block is zero, the block-Jacobi inverse non-finite, the step NaN
+    # and rejected, as JAX's (tests/test_torch_singular_solves.py).
+    for device in ("cpu", dev):
+        p = ba.sort_by_point(unobserved_camera_problem(device, n_single=0))
+        out = ba.lm_step(p, torch.tensor(0.0, device=device), ba.stage_error(p), schur="pcg")
+        if not (torch.equal(out[0], p.cam_T) and torch.equal(out[1], p.points)
+                and float(out[2]) == 0.0):
+            raise AssertionError(f"PCG step at zero damping on {device}: not rejected")
+        solve, pp = sharded_ba.map_sharded_solve(p, Mesh([device] * SHARDS))
+        solve.lm_lambda0 = 0.0
+        solve.step()
+        if not (torch.equal(solve.cam_T[0][:64], p.cam_T)
+                and torch.equal(solve.mesh.gather_local(solve.points).cpu(),
+                                torch.as_tensor(np.asarray(pp.points)).cpu())
+                and float(solve.lam[0]) == 0.0):
+            raise AssertionError(f"map-sharded step at zero damping on {device}: not rejected")
+    print(f"phase6 singular block-Jacobi inverse (ba.py PCG, sharded_ba.py on {SHARDS} shards), "
+          f"zero damping beside an unobserved camera: the step rejected on the CPU and on CUDA, "
+          f"as the JAX package rejects it", flush=True)
+
+    rng = np.random.default_rng(0)
+    n = 50
+    xw = (rng.normal(size=(n, 3)) + [0, 0, 6]).astype(np.float32)
+    args = (np.eye(3, 4, dtype=np.float32), xw, rng.uniform(0, 400, (n, 3)).astype(np.float32),
+            np.ones(n, np.float32), np.zeros(n, bool), np.zeros(n, bool),
+            np.array([500.0, 500.0, 320.0, 240.0], np.float32))
+    poses = [pose_opt.optimize_pose(*(torch.from_numpy(a).to(device) for a in args), 0.0,
+                                    damping=0.0).pose.cpu() for device in ("cpu", dev)]
+    if not all(bool(torch.isnan(q).all()) for q in poses):
+        raise AssertionError("pose solve at zero damping with no valid match: not all NaN")
+
+    rng = np.random.default_rng(3)
+    H = (np.eye(3) + rng.normal(0, 1e-4, (4, 3, 3))).astype(np.float32)
+    H[0, 2] = 0
+    uv1 = rng.uniform(0, 640, (120, 2)).astype(np.float32)
+    uv2 = (uv1 + rng.normal(0, 1, uv1.shape)).astype(np.float32)
+    valid = rng.random(120) > 0.1
+    sc = [twoview._score_h(*(torch.from_numpy(a).to(device) for a in (H, uv1, uv2, valid)), 1.0)
+          for device in ("cpu", dev)]
+    if not (torch.equal(sc[0][1], sc[1][1].cpu())
+            and torch.allclose(sc[0][0], sc[1][0].cpu(), rtol=1e-4, equal_nan=True)):
+        raise AssertionError("homography score of a rank-2 hypothesis: CUDA differs from the CPU")
+    print(f"phase6 pose solve at zero damping (pose_opt.py solve_ex): NaN pose on both devices, "
+          f"as JAX's; rank-2 homography score (twoview.py _score_h inv_ex): scores "
+          f"{[round(float(x), 3) for x in sc[1][0].cpu()]} on CUDA, equal to the CPU's, inlier "
+          f"flags equal", flush=True)
+
+    for site, op, a in singular_ops():
+        got = {device: singular_op(op, a, device) for device in ("cpu", dev)}
+        counts = {d: tuple(int(f(g[0]).sum()) for f in (np.isnan, np.isposinf, np.isneginf))
+                  for d, g in got.items()}
+        fin = np.isfinite(got["cpu"])
+        agree = (np.array_equal(fin, np.isfinite(got[dev]))
+                 and np.allclose(got["cpu"][fin], got[dev][fin], rtol=1e-4, atol=1e-5))
+        print(f"phase6 singular {op} ({site}), {a.shape}: (NaN, +inf, -inf) of the singular "
+              f"matrix's result: cpu {counts['cpu']}, cuda {counts[dev]}, JAX "
+              f"{SINGULAR_JAX[site]}; finite entries agree: {agree}", flush=True)
+        if counts["cpu"] != SINGULAR_JAX[site] or not agree:
+            raise AssertionError(f"singular {op} at {site}: CUDA, CPU and JAX disagree")
+
 BASELINE = 0.2
 
 
@@ -937,6 +1103,7 @@ def loop_run(label, dev, sensor_name, mesh=None, n=240):
     goes on along the orbit at the same step past its 1.18 laps."""
     import numpy as np
     from c_orb_slam_tpu_torch import config as tcfg
+    from c_orb_slam_tpu_torch.optim import ba
     from c_orb_slam_tpu_torch.system import System
 
     syn = _synthetic()
@@ -1024,7 +1191,9 @@ def loop_run(label, dev, sensor_name, mesh=None, n=240):
         if lc.n_gba_applied > len(gba_at):
             gba_at.append(i)
 
+    ba.reset_failed_factorizations()
     run = drive(label, sysm, frames, track, traj, 10.0, with_scale=mono, on_frame=on_frame)
+    failed = ba.failed_factorizations(dev)  # counted on the device, read once
     med = statistics.median(run["host_ms"][WARMUP_FRAMES:])
     print(f"{label} loops closed {lc.n_loops_closed} at frames {loops_at}, global BA applied "
           f"{lc.n_gba_applied} at frames {gba_at or 'none (in the shutdown drain)'}, keyframes "
@@ -1062,6 +1231,10 @@ def loop_run(label, dev, sensor_name, mesh=None, n=240):
     if not np.isfinite(sysm.map.pt_xyz[sysm.map.live_points()]).all():
         raise AssertionError(f"{label}: non-finite map points after the correction")
     routes = {k: v - routes0[k] for k, v in sysm.local_mapping.ba_routes.items()}
+    its = cfg.optimizer.local_ba_its_first + cfg.optimizer.local_ba_its_second
+    print(f"{label} local BA: {sum(routes.values())} solves, {its * sum(routes.values())} LM "
+          f"iterations; dense-Schur LM iterations whose factorization failed (the step rejected; "
+          f"the monocular initial BA included): {failed}", flush=True)
     live = [f for f in gba_at if f < n]
     print(f"{label} mesh {sysm.mesh}: local BA solves by route {json.dumps(routes)}, essential "
           f"graph by route {json.dumps(lc.pg_routes)}, global BA jobs applied {gba_jobs}, "
@@ -1418,6 +1591,43 @@ def ba_problem(C, P, per_point, P_slots, O_slots, device, seed=0, spacing=0.3):
         obs_valid=t(np.arange(O_slots) < O),
         K=t([500.0, 500.0, 320.0, 240.0], np.float32), bf=t(BASELINE * 500, np.float32),
     )
+
+
+def unobserved_camera_problem(device, C=24, P=5000, per_point=3, n_single=40, seed=0):
+    """tests/test_torch_optim.py's non-PD local BA at the full local-BA
+    bucket (64 camera, 8192 point and 16384 observation slots): ba_problem's
+    C cameras and P points, monocular, as the clean LM stage sees them
+    after the Huber stage classified out every observation of the last
+    camera (badly posed, 0.3 rad off), whose pivot is then the damping
+    alone; n_single of its points were seen besides by one free camera
+    only, so that camera holds them alone (their Hpp rank 2 plus the
+    damping) and, at a small damping, its float32 Schur pivot cancels to a
+    non-positive value: the reduced system fails Cholesky."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.geometry import se3
+
+    p = ba_problem(C, P, per_point, 8192, 16384, "cpu", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    obs_cam, obs_pt = p.obs_cam.numpy(), p.obs_pt.numpy()
+    valid = p.obs_valid.numpy().copy()
+    bad = C - 1
+    seen = np.unique(obs_pt[valid & (obs_cam == bad)])
+    for q in rng.choice(seen, min(n_single, len(seen)), replace=False):
+        rows = np.nonzero(valid & (obs_pt == q) & (obs_cam != bad))[0]
+        free = rows[obs_cam[rows] >= 2]
+        if len(free):
+            valid[np.setdiff1d(rows, free[:1])] = False
+    valid &= obs_cam != bad
+    cam_T = p.cam_T.clone()
+    cam_T[bad] = se3.compose(se3.exp(torch.tensor([0.0, 0.0, 0.0, 0.0, 0.3, 0.0])), cam_T[bad])
+    pad = torch.zeros(64 - C, dtype=torch.bool)
+    p = p._replace(
+        cam_T=torch.cat([cam_T, torch.eye(3, 4).repeat(64 - C, 1, 1)]),
+        cam_fixed=torch.cat([p.cam_fixed, pad]), cam_valid=torch.cat([p.cam_valid, pad]),
+        obs_valid=torch.from_numpy(valid), obs_stereo=torch.zeros_like(p.obs_stereo),
+        bf=torch.tensor(0.0))
+    return type(p)(*(x.to(device) for x in p))
 
 
 def ring_problem(C, P, per_point, device, seed=0, radius=10.0):
@@ -1789,6 +1999,7 @@ def main() -> int:
             launches += phase(dev) or 0
             if num == 6:
                 phase6_loop(dev)
+                phase6_singular(dev)
             print(f"phase{num} took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         singles = phase10a(dev)

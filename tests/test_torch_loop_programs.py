@@ -6,8 +6,9 @@ Tolerances: transforms and moved points 2e-5 (float32 Sim3 chains:
 from_se3 -> compose -> inverse -> apply); match indices and masks equal.
 ``_pg_finalize_program`` gets inputs on which the two candidate rules for
 a point's reference vertex agree (every point's reference keyframe is
-the keyframe that moved it), so the test pins the remap formula, not a
-choice of reference.
+the keyframe that moved it), so that test pins the remap formula, not a
+choice of reference; test_pg_finalize_remaps_propagated_points_once pins
+the choice, where the port parts from the JAX package on purpose.
 """
 
 import jax
@@ -145,3 +146,58 @@ def test_pg_finalize_program_matches_jax():
     lhs = np.asarray(jax.vmap(jsim3.apply)(jnp.asarray(S_new[ref]), jnp.asarray(got[0].numpy())))
     rhs = np.asarray(jax.vmap(jsim3.apply)(jnp.asarray(S_old[ref]), jnp.asarray(xyz)))
     np.testing.assert_allclose(lhs, rhs, atol=5e-5)
+
+
+def test_pg_finalize_remaps_propagated_points_once():
+    """ROADMAP queue 3 g, a reference fault the port does not copy. The Sim3
+    propagation moves the points of the group keyframes; the remap after
+    the essential graph must then go through the group keyframe that moved
+    each (ORB-SLAM2 Optimizer.cc:1021-1027, mnCorrectedReference), not
+    through its reference keyframe: one outside the group applies its own
+    correction a second time. The JAX package remaps every point through
+    its reference keyframe (its loop_closing.py:1376); the port's
+    _pg_finalize_refs takes the mover. Here half of the moved points are
+    referenced outside the group: the port remaps every point once,
+    x' = S_new[k]^-1 S_before[k] x for the keyframe k that corrects it, and
+    JAX differs from the port on exactly the moved points referenced
+    outside the group."""
+    s = _scene()
+    g_idx = np.array([5, 4, 3], np.int64)  # the current keyframe and its covisibles
+    rng = np.random.default_rng(4)
+    sel = np.sort(rng.permutation(NP)[:40]).astype(np.int64)  # points the group sees
+    owner = rng.integers(0, len(g_idx), len(sel)).astype(np.int64)
+    mover = g_idx[owner]
+    ref_kf = rng.integers(0, 3, NP).astype(np.int64)  # outside the group ...
+    inside = rng.random(len(sel)) < 0.5
+    ref_kf[sel[inside]] = mover[inside]  # ... or the group keyframe that moves the point
+    S_all, S_g_corr, _, x_new, _ = tlc._propagate_program(
+        _t(s["poses"]), _t(s["xyz"]), _t(_S_cl()), 0, 5, _t(g_idx), _t(owner), _t(sel))
+    xyz = s["xyz"].copy()
+    xyz[sel] = x_new.numpy()
+    # The essential graph's start (every keyframe's Sim3, the group's
+    # corrected) and an optimized graph near it.
+    verts_old = S_all.numpy().copy()
+    verts_old[g_idx] = S_g_corr.numpy()
+    delta = jax.vmap(jsim3.exp)(jnp.asarray(rng.normal(size=(NK, 7)) * 0.05, jnp.float32))
+    verts_new = np.asarray(jax.vmap(jsim3.compose)(delta, jnp.asarray(verts_old)))
+
+    moved_by = np.full(NP, -1, np.int64)
+    moved_by[sel] = mover
+    ref_t = tlc._pg_finalize_refs(ref_kf, moved_by, np.ones(NK, bool), 0)
+    got = tlc._pg_finalize_program(*(_t(a) for a in (verts_old, verts_new, ref_t, xyz)))
+    want = jlc._pg_finalize_program(*(jnp.asarray(a) for a in (verts_old, verts_new, ref_kf, xyz)))
+
+    # Expected: each point corrected once, by the keyframe that corrects it.
+    k = np.where(moved_by >= 0, moved_by, ref_kf)
+    S_before = S_all.numpy()
+    once = np.asarray(jax.vmap(jsim3.apply)(
+        jax.vmap(jsim3.inverse)(jnp.asarray(verts_new[k])),
+        jax.vmap(jsim3.apply)(jnp.asarray(S_before[k]), jnp.asarray(s["xyz"]))))
+    np.testing.assert_allclose(got[0].numpy(), once, atol=5e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=2e-5)
+
+    twice = np.zeros(NP, bool)
+    twice[sel[~inside]] = True
+    gap = np.abs(got[0].numpy() - np.asarray(want[0])).max(1)
+    assert twice.sum() >= 10 and (gap[twice] > 1e-2).all(), gap[twice]
+    assert (gap[~twice] < 2e-5).all(), gap[~twice].max()

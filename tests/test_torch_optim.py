@@ -88,8 +88,45 @@ def _ba_problem(stereo, n_cams=6, n_pts=300, seed=0, outliers=False):
     )
 
 
-@pytest.mark.parametrize("case", ["mono", "stereo", "mono_outliers"])
+def _unobserved_camera_problem():
+    """_ba_problem (mono) as the clean LM stage sees it after the Huber
+    stage classified out every observation of a badly posed free camera
+    (camera 5, 0.3 rad off): its pivot in the reduced system is the damping
+    alone. 20 points were seen by it and by camera 4 only, so camera 4
+    now holds them alone: their Hpp is rank 2 plus the damping, and in
+    float32 the Schur complement of camera 4 cancels to a non-positive
+    pivot, so S fails Cholesky."""
+    arrs = _ba_problem(stereo=False)
+    single = np.random.default_rng(1).choice(300, 20, replace=False)
+    keep = ~np.isin(arrs["obs_pt"], single) | np.isin(arrs["obs_cam"], [4, 5])
+    arrs["obs_valid"] &= keep & (arrs["obs_cam"] != 5)
+    arrs["cam_T"][5] = _pose([0.0, 0.3, 0.0], [0, 0, 0]) @ np.vstack([arrs["cam_T"][5], [0, 0, 0, 1]])
+    return arrs
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo", "mono_outliers",
+                                  "mono_unobserved_camera_lm4", "mono_unobserved_camera_lm8"])
 def test_bundle_adjust_matches_jax_dense_schur(case):
+    if "unobserved_camera" in case:
+        # One LM iteration at the damping of the clean stage after 4 or 8
+        # accepted steps: the float32 factorization fails in both
+        # packages, and the step is rejected as JAX's NaN step is: cameras
+        # and points unchanged, the damping times 4, the same error.
+        arrs = _unobserved_camera_problem()
+        lam = 1e-4 * 0.5 ** int(case[-1])
+        jp = jba.sort_by_point(jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrs.items()}))
+        tp = tba.sort_by_point(tba.BAProblem(**{k: torch.from_numpy(np.array(v)) for k, v in arrs.items()}))
+        j = jba.lm_step(jp, jnp.float32(lam), jba.stage_error(jp, use_huber=False), use_huber=False,
+                        schur="dense")
+        tba.reset_failed_factorizations()
+        t = tba.lm_step(tp, torch.tensor(lam), tba.stage_error(tp, use_huber=False), use_huber=False)
+        assert tba.failed_factorizations("cpu") == 1
+        for got, want, start in zip(t[:2], j[:2], (arrs["cam_T"], np.asarray(jp.points))):
+            np.testing.assert_array_equal(np.asarray(want), start)
+            np.testing.assert_array_equal(got.numpy(), start)
+        assert float(t[2]) == float(j[2]) == np.float32(lam) * 4
+        np.testing.assert_allclose(float(t[3]), float(j[3]), rtol=1e-5)
+        return
     arrs = _ba_problem(stereo=case == "stereo", outliers=case.endswith("outliers"))
     j = jba.bundle_adjust(jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrs.items()}), schur="dense")
     t = tba.bundle_adjust(tba.BAProblem(**{k: torch.from_numpy(np.array(v)) for k, v in arrs.items()}))

@@ -112,6 +112,24 @@ def test_make_mesh_defaults_to_one_cpu_shard():
     assert make_mesh(["cpu"] * 3).size == 3
 
 
+def test_make_mesh_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """No CPU fallback: with no card visible the default mesh raises and
+    says how to ask for the CPU; the solvers' default mesh is built on the
+    device of the problem's tensors, so a CPU problem solves on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        make_mesh()
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        make_mesh(device_type="cuda")
+    assert make_mesh(device_type="cpu").devices == (torch.device("cpu"),)
+    jp, _ = _make_problem(O=N_OBS)
+    tp = to_torch(jp)
+    kw = dict(iters_first=2, iters_second=2, pcg_iters=10)
+    (cam_T, _, _, _), _ = sharded_ba.sharded_bundle_adjust(tp, **kw)
+    want, _ = sharded_ba.sharded_bundle_adjust(tp, Mesh(["cpu"]), **kw)
+    assert cam_T.device.type == "cpu" and torch.equal(cam_T, want[0])
+
+
 @pytest.mark.parametrize("O,multiple", [(397, 8), (400, 8), (401, 3)])
 def test_pad_observations_equal_jax(O, multiple):
     jp, _ = _make_problem(O=O)

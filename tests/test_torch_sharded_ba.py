@@ -128,6 +128,16 @@ def test_pad_edges_equals_jax(multiple):
         np.testing.assert_array_equal(b.numpy(), a, err_msg=f)
 
 
+def test_distributed_pose_graph_default_mesh_is_the_problems_device(monkeypatch):
+    """With no mesh given, the essential graph is solved on a mesh of the
+    problem's device type, never a CPU fallback for a missing card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tp = tpg.PoseGraphProblem(*(torch.from_numpy(np.array(x)) for x in _drifted_loop_problem()))
+    kw = dict(iters=2, pcg_iters=10)
+    assert torch.equal(tdpg.distributed_pose_graph(tp, **kw),
+                       tdpg.distributed_pose_graph(tp, Mesh(["cpu"]), **kw))
+
+
 @pytest.mark.parametrize("fix_scale", [False, True])
 def test_distributed_pose_graph_matches_single_and_jax(fix_scale):
     if len(jax.devices()) < 8:
