@@ -270,7 +270,7 @@ class _GbaJob:
         self._fut = None
         # CPU: apply as soon as the fetch is dispatched, so the apply
         # frame never depends on timing (same determinism rationale as
-        # LocalMapping._fixed_defer).
+        # LocalMapping's one-frame defer).
         self._fixed = problem.points.device.type == "cpu"
 
     def _solve(self, problem, mesh, iters_first, iters_second, pcg_iters, chi2_mono,

@@ -32,9 +32,6 @@ from c_orb_slam_tpu_torch.utils.host import fetch_async, to_device
 # asks the scheduler to retry next frame instead of blocking the frame loop.
 NOT_READY = object()
 
-# How many frames an apply stage may defer before it blocks anyway.
-_MAX_WAITS = 3
-
 # Mapping stages run per tracked frame (times 1 + the queue's length).
 _STAGE_BUDGET = 4
 
@@ -170,11 +167,18 @@ class LocalMapping:
         self.sf = np.asarray(cfg.orb.scale_factors(), np.float32)
         self._sigma2_dev = to_device(self.device, self.sigma2)
         self._sf_dev = to_device(self.device, self.sf)
-        # Apply halves defer (NOT_READY) until their readback lands; on
-        # the CPU each defers exactly one frame, so mapping progress does
-        # not depend on machine load (mapping.py:275-282 of the JAX
-        # package).
-        self._fixed_defer = self.device.type == "cpu"
+        # Apply halves run on a fixed schedule, so that mapping progress
+        # never depends on when a readback lands. On the CPU each defers
+        # exactly one frame (NOT_READY), the JAX package's CPU rule
+        # (mapping.py:275-282 there), which the CPU tests hold the port
+        # to; on a card each waits for its readback in the frame of its
+        # dispatch. The JAX package's accelerators poll the readback
+        # instead: polled on the H100, whether a thin frame found the
+        # mapper behind followed the host's load, and 2 of 28 monocular
+        # benchmark records failed their ATE gate; the CPU's one-frame
+        # defer on the card mapped too slowly for the stereo orbit
+        # (chip_smoke phase 7 at 0.96 m against 0.4) (PERF.md §6).
+        self._defer = self.device.type == "cpu"
         self.queue: list[int] = []
         self._stages: list = []
         self.on_keyframe_done = None  # callback(kf) -> feeds LoopClosing
@@ -311,13 +315,11 @@ class LocalMapping:
         if self.on_keyframe_done is not None and self.map.kf_valid[kf]:
             self.on_keyframe_done(kf)
 
-    def _not_ready(self, stage: str, fut) -> bool:
-        """Whether an apply half should wait for its readback another
-        frame (bounded by _MAX_WAITS)."""
-        waiting = (
-            self._waits[stage] < 1 if self._fixed_defer else not fut.done()
-        )
-        if waiting and self._waits[stage] < _MAX_WAITS:
+    def _not_ready(self, stage: str) -> bool:
+        """Whether an apply half defers to the next frame: on the CPU
+        once, the frame of its dispatch; on a card never (its readback
+        is waited for)."""
+        if self._defer and self._waits[stage] < 1:
             self._waits[stage] += 1
             return True
         self._waits[stage] = 0
@@ -390,7 +392,7 @@ class LocalMapping:
     def _triangulate_apply(self):
         if self._pending_tri is None:
             return
-        if self._not_ready("tri", self._pending_tri[-1]):
+        if self._not_ready("tri"):
             return NOT_READY
         k1, ks, k2s, pair_valid, fut = self._pending_tri
         self._pending_tri = None
@@ -495,7 +497,7 @@ class LocalMapping:
     def _fuse_apply(self):
         if self._pending_fuse is None:
             return
-        if self._not_ready("fuse", self._pending_fuse[-1]):
+        if self._not_ready("fuse"):
             return NOT_READY
         kf, live_pairs, pts_arr, fut = self._pending_fuse
         self._pending_fuse = None
@@ -652,7 +654,7 @@ class LocalMapping:
     def _ba_apply(self):
         if self._pending_ba is None:
             return
-        if self._not_ready("ba", self._pending_ba[-1]):
+        if self._not_ready("ba"):
             return NOT_READY
         cam_slot, cam_fixed, pts, n_obs, obs_pt, obs_valid, kfs_sel, fut = self._pending_ba
         self._pending_ba = None

@@ -18,16 +18,19 @@ same 20 calls ("device_ms", its time on the device: the wrapper's host
 side takes longer than the kernel runs), and an empty kernel launched the
 same way; and it computes each case's bound from the case's own inputs.
 
-Phases 2-5 drive the port's entry points with loop closing off, each on a
-synthetic sequence rendered by tests/synthetic.py, and check frames
-tracked, ATE and that window_top2 launched during that phase's run:
+Phases 2-5 drive the port's entry points with loop closing off (the main
+path's loop-off runs), each on a synthetic sequence rendered by
+tests/synthetic.py, and check frames tracked, ATE and that window_top2
+launched during that phase's run:
 - phase 2: System.track_rgbd, 60 frames at TUM RGB-D geometry (640x480,
   1000 features, 8 levels), ATE at absolute scale; local BA must run;
-- phase 3: System.track_monocular at bench.py's mono_tum30 (70 frames, 30
-  Hz, 1000 features, 8 levels), ATE after scale alignment;
-- phase 4: System.track_stereo at bench.py's stereo_kitti geometry
-  (1241x376, 2000 features, 8 levels, baseline 0.2 m), cut from 120 to 60
-  frames, ATE at absolute scale;
+- phase 3: System.track_monocular on bench.py's mono_tum30 (70 frames, 30
+  Hz, 1000 features, 8 levels; the entry of the port's bench CONFIGS)
+  with loop closing off, which bench.py leaves on; ATE after scale
+  alignment;
+- phase 4: System.track_stereo on bench.py's stereo_kitti (1241x376, 2000
+  features, 8 levels, baseline 0.2 m; the port's CONFIGS entry), cut from
+  120 to 30 frames and with loop closing off; ATE at absolute scale;
 - phase 5: relocalization: the 40-frame RGB-D sequence of
   tests/test_torch_reloc.py with frames 28-29 blank, in lock-step
   (pipeline depth 1), must relocalize at frame 30 or later and end OK;
@@ -84,7 +87,7 @@ shards on the one card, as the JAX tests' 8 virtual CPU devices):
   tests' tolerances; the points seen from two cameras or more, the inlier
   flags in slab order against the solve of the partitioned problem, and
   the mean inlier chi2, at five times the gaps measured on the card) and timed
-  beside it (CUDA events, median of 5), with its collectives per
+  beside it (CUDA events, median of 3), with its collectives per
   iteration;
 - 10b: two gloo ranks on cuda:0 (2 shards each; gloo's CUDA tensors cross
   through host memory) run the global BA and the essential graph, then one
@@ -99,6 +102,15 @@ shards on the one card, as the JAX tests' 8 virtual CPU devices):
   local BA through dba; it prints the local BAs by route, the frame on
   which the global BA was applied and the worst frame with what the loop
   closer advanced on it.
+
+Phase 11 runs the port's benchmark entry point, `python3 -m
+c_orb_slam_tpu_torch.tools.bench --all`, in a child process: bench.py's
+four configurations (mono_fast10, stereo_kitti, stereo_kitti_long, then
+the headline mono_tum30), whole and as bench.py runs them, with loop
+closing on. It prints the four records and fails unless the child exits 0
+and each record holds its bench.py gate, ran with loop closing on on this
+card with its power limit recorded, and launched window_top2; those
+launches count toward the kernel's.
 
 Exits nonzero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
@@ -415,7 +427,7 @@ def _gates(label, run, n, ate_gate):
 
 def _tum_cfg(mod, sensor):
     """TUM-geometry configuration: 640x480, fx = fy = 500, 1000 features,
-    8 levels (bench.py mono_tum30; bf = 100 for the RGB-D runs)."""
+    8 levels (bench.py mono_tum30's geometry; bf = 100 for the RGB-D runs)."""
     cam = mod.CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480,
                            fps=30, bf=100.0)
     return mod.SlamConfig(
@@ -448,55 +460,42 @@ def phase2(dev):
 
 
 def phase3(dev):
-    """System.track_monocular at bench.py's mono_tum30."""
-    from c_orb_slam_tpu_torch import config as tcfg
+    """System.track_monocular at bench.py's mono_tum30, whole, with loop
+    closing off (phase 11 runs it with loop closing on)."""
     from c_orb_slam_tpu_torch.system import System
+    from c_orb_slam_tpu_torch.tools import bench
     from c_orb_slam_tpu_torch.tracking import TrackState
 
-    syn = _synthetic()
-    n = 70
-    cfg = _tum_cfg(tcfg, tcfg.Sensor.MONOCULAR)
-    K4 = (cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy)
-    xw, inten, size = syn.blob_world(400, seed=5)
-    traj = syn.smooth_trajectory(n, speed=0.4)
-    frames = [_u8(syn.render_scene(xw, inten, size, T, K4)) for T in traj]
+    c, cfg, frames, traj = bench.load("mono_tum30")
+    dt = c["dt_frame"]
     sysm = System(cfg, dev, enable_loop_closing=False)
     sysm.warmup()
     inits = []
     _timed(sysm.tracker, "_monocular_initialization", inits)
-    run = drive("phase3", sysm, frames, lambda s, i, f: s.track_monocular(f, i / 30.0),
-                traj, 30.0, with_scale=True)
+    run = drive("phase3", sysm, frames, lambda s, i, f: s.track_monocular(f, i * dt),
+                traj, 1.0 / dt, with_scale=True, warmup=c["warmup"])
     print(f"phase3 two-view initialization calls (host ms incl. sync): "
           f"{[round(ms, 3) for ms, _ in inits]}; the last one initialized the map", flush=True)
-    _gates("phase3", run, n, 0.05)
+    _gates("phase3", run, c["n_frames"], c["ate_gate"])
     if sysm.tracking_state() != TrackState.OK:
         raise AssertionError("phase3: tracking not OK at the end")
     return run["launches"]
 
 
 def phase4(dev):
-    """System.track_stereo at bench.py's stereo_kitti geometry, 60 frames."""
-    from c_orb_slam_tpu_torch import config as tcfg
+    """System.track_stereo at bench.py's stereo_kitti, cut from 120 to 30
+    frames (the first quarter of its path), with loop closing off (phase 11
+    runs it whole with loop closing on)."""
     from c_orb_slam_tpu_torch.system import System
+    from c_orb_slam_tpu_torch.tools import bench
 
-    syn = _synthetic()
-    n = 60
-    cam = tcfg.CameraConfig(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241,
-                            height=376, fps=10, bf=718.856 * 0.2)
-    cfg = tcfg.SlamConfig(
-        sensor=tcfg.Sensor.STEREO, camera=cam, orb=tcfg.OrbConfig(n_features=2000, n_levels=8),
-        tracking=tcfg.TrackingConfig(min_stereo_init_points=60),
-    )
-    K4 = (cam.fx, cam.fy, cam.cx, cam.cy)
-    xw, inten, size = syn.blob_world(400, seed=5)
-    traj = syn.smooth_trajectory(n, speed=0.5)
-    frames = [tuple(_u8(im) for im in syn.render_stereo_pair(xw, inten, size, T, K4, 0.2,
-                                                             h=376, w=1241)) for T in traj]
+    c, cfg, frames, traj = bench.load("stereo_kitti", n_frames=30)
+    dt = c["dt_frame"]
     sysm = System(cfg, dev, enable_loop_closing=False)
     sysm.warmup()
-    run = drive("phase4", sysm, frames, lambda s, i, f: s.track_stereo(f[0], f[1], i / 10.0),
-                traj, 10.0, with_scale=False)
-    _gates("phase4", run, n, 0.05)
+    run = drive("phase4", sysm, frames, lambda s, i, f: s.track_stereo(f[0], f[1], i * dt),
+                traj, 1.0 / dt, with_scale=False, warmup=c["warmup"])
+    _gates("phase4", run, c["n_frames"], c["ate_gate"])
     return run["launches"]
 
 
@@ -1832,7 +1831,7 @@ def _check_gaps(label, gaps, tols):
 def phase10a(dev):
     """The three sharded solvers on a mesh of SHARDS shards on one card,
     each held against its single-device solve on the card (every output)
-    and timed (CUDA events, median of 5) beside it; collectives per
+    and timed (CUDA events, median of 3) beside it; collectives per
     iteration. Returns the single-device results and the points seen
     twice, for phase 10b."""
     import torch
@@ -1847,13 +1846,13 @@ def phase10a(dev):
         torch.cuda.synchronize()
         counts = {k: [v[0] / iters, v[1] / iters] for k, v in mesh.counts.items()}
         gaps = _gaps(got, ref, seen)
-        single_ms = _event_ms(single, 5)
-        sharded_ms = _event_ms(lambda: sharded(mesh), 5)
+        single_ms = _event_ms(single, 3)
+        sharded_ms = _event_ms(lambda: sharded(mesh), 3)
         print(f"phase10a {name} ({what}) on {SHARDS} shards of {dev}: sharded against single "
               f"device (gap, tolerance) {json.dumps({k: [v, tols[k]] for k, v in gaps.items()})} "
               f"(max |difference|; points seen from two cameras or more; differing inlier "
               f"flags; relative gap of the mean inlier chi2); sharded {sharded_ms:.3f} ms, "
-              f"single device {single_ms:.3f} ms (CUDA events, median of 5); collectives per "
+              f"single device {single_ms:.3f} ms (CUDA events, median of 3); collectives per "
               f"{unit} (calls, elements): {json.dumps(counts)}", flush=True)
         _check_gaps(f"phase10a {name}", gaps, tols)
         singles[name] = (ref, seen)
@@ -1965,6 +1964,45 @@ def phase10c(dev):
     return loop_run("phase10c", dev, "stereo", mesh=Mesh([dev] * SHARDS), n=280)
 
 
+def phase11(dev):
+    """The port's benchmark entry point, `python3 -m
+    c_orb_slam_tpu_torch.tools.bench --all`, in a child process on the
+    card: bench.py's four configurations, as bench.py runs them (loop
+    closing on, the shipped vocabulary). Prints its four records; fails
+    unless the child exits 0 and every record holds its bench.py gate (no
+    error, vs_baseline > 0), ran with loop closing on on this card, carries
+    its power limit, and launched window_top2. Returns the launches (over
+    each configuration's timed window)."""
+    import torch
+    from c_orb_slam_tpu_torch.tools import bench
+
+    r = subprocess.run([sys.executable, "-m", "c_orb_slam_tpu_torch.tools.bench", "--all",
+                        "--device", str(dev)], cwd=HERE, capture_output=True, text=True,
+                       timeout=900)
+    recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    for rec in recs:
+        print("phase11 bench", json.dumps(rec), flush=True)
+    if r.returncode != 0:
+        raise AssertionError(f"phase11: the bench exited {r.returncode}: {r.stderr[-3000:]}")
+    names = [rec["metric"].removeprefix("tracked_frames_per_sec_1chip").lstrip("_")
+             for rec in recs]
+    if names != [*bench.ALL[:-1], ""]:
+        raise AssertionError(f"phase11: records {names}, not {list(bench.ALL)} (headline last)")
+    kind = torch.cuda.get_device_name(dev)
+    for name, rec in zip(bench.ALL, recs):
+        if "error" in rec or not rec["vs_baseline"] > 0:
+            raise AssertionError(f"phase11 {name}: failed its gate: {rec.get('error')}")
+        if not rec["loop_closing"] or rec["device"] != kind or not rec["power_limit_w"]:
+            raise AssertionError(f"phase11 {name}: not a loop-closing run on {kind} with its "
+                                 f"power limit: {rec}")
+        if rec["window_top2_launches"] <= 0:
+            raise AssertionError(f"phase11 {name}: window_top2 never launched")
+        if rec["loops_closed"]:
+            print(f"phase11 {name}: {rec['loops_closed']} loop(s) closed on a path that never "
+                  f"comes back to a place it saw: a false detection", flush=True)
+    return sum(rec["window_top2_launches"] for rec in recs)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--phase10-rank"]:  # a child of phase 10b
         role, rank, world, store, out, device, sizes = sys.argv[2:9]
@@ -2006,6 +2044,9 @@ def main() -> int:
         phase10b(dev, singles)
         launches += phase10c(dev)
         print(f"phase10 took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches += phase11(dev)
+        print(f"phase11 took {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 
