@@ -101,6 +101,23 @@ def _stereo_subpixel(left, right, cfg: SlamConfig, xy_raw, octave, ur, has):
     return ur_out, keep, sad_out
 
 
+def _stereo_match(kl: extract.Keypoints, kr: extract.Keypoints, cfg: SlamConfig):
+    """The dense L x R match of the left and right keypoints: row band
+    |vL - vR| <= 2 * scale(octave), disparity in (0, fx], i.e. minZ =
+    baseline (Frame.cc:470-473), octaves at most one apart. Returns the
+    matches and the matched right u coordinate (-1 where none)."""
+    sf = torch.tensor(cfg.orb.scale_factors(), dtype=torch.float32, device=kl.xy.device)
+    band_ok = (kl.xy[:, 1:2] - kr.xy[None, :, 1]).abs() <= (2.0 * sf[kl.octave.long()])[:, None]
+    disp = kl.xy[:, 0:1] - kr.xy[None, :, 0]
+    disp_ok = (disp > 0.0) & (disp <= cfg.camera.fx)
+    oct_ok = (kl.octave[:, None] - kr.octave[None, :]).abs() <= 1
+    m = match.match(
+        kl.desc, kr.desc, kl.valid, kr.valid, pair_mask=band_ok & disp_ok & oct_ok,
+        max_dist=cfg.matcher.th_high, nn_ratio=1.0, unique_targets=False,
+    )
+    return m, torch.where(m.valid, kr.xy[m.idx.long(), 0], -1.0)
+
+
 def build_stereo(left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig) -> FrameData:
     """Stereo: extract on both images, row-banded Hamming match, SAD
     subpixel disparity -> depth (reference: Frame.cc:466-640
@@ -112,18 +129,7 @@ def build_stereo(left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig) -> Fr
     kr = extract.extract_orb(right, cfg.orb, cfg.vocabulary.seed)
     # Rectified input: keypoints are used as they are (Frame.cc:407-411).
     xy_u = kl.xy
-    # Row band |vL - vR| <= 2 * scale(octave); disparity in (0, fx], i.e.
-    # minZ = baseline (Frame.cc:470-473); octaves at most one apart.
-    sf = torch.tensor(cfg.orb.scale_factors(), dtype=torch.float32, device=left.device)
-    band_ok = (kl.xy[:, 1:2] - kr.xy[None, :, 1]).abs() <= (2.0 * sf[kl.octave.long()])[:, None]
-    disp = kl.xy[:, 0:1] - kr.xy[None, :, 0]
-    disp_ok = (disp > 0.0) & (disp <= cfg.camera.fx)
-    oct_ok = (kl.octave[:, None] - kr.octave[None, :]).abs() <= 1
-    m = match.match(
-        kl.desc, kr.desc, kl.valid, kr.valid, pair_mask=band_ok & disp_ok & oct_ok,
-        max_dist=cfg.matcher.th_high, nn_ratio=1.0, unique_targets=False,
-    )
-    ur0 = torch.where(m.valid, kr.xy[m.idx.long(), 0], -1.0)
+    m, ur0 = _stereo_match(kl, kr, cfg)
     ur, keep, sad = _stereo_subpixel(left, right, cfg, kl.xy, kl.octave, ur0, m.valid)
     good = m.valid & keep
     # Median-SAD trim: drop SAD >= 1.5 * 1.4 * median; the median is the

@@ -155,6 +155,15 @@ def _fuse_pairs_batch(cfg: SlamConfig, dsts, pts_idx, KF_pose, KF_xy, KF_octave,
     )
 
 
+def local_ba_options(cfg: SlamConfig) -> dict:
+    """The solver options of a local BA: LM iterations of its two stages,
+    robust thresholds, dense Schur."""
+    opt = cfg.optimizer
+    return dict(iters_first=opt.local_ba_its_first, iters_second=opt.local_ba_its_second,
+                chi2_mono=opt.chi2_mono, chi2_stereo=opt.chi2_stereo,
+                pcg_iters=opt.pcg_iters, schur="dense")
+
+
 class LocalMapping:
     def __init__(self, cfg: SlamConfig, mapstate: MapState, device: torch.device, mesh: Mesh):
         self.cfg = cfg
@@ -637,10 +646,7 @@ class LocalMapping:
         parallel/dba with its observations sharded; small buckets stay on
         one device (sharding a tiny problem costs more in collectives than
         it saves). A failure on the sharded route raises."""
-        opt = self.cfg.optimizer
-        kw = dict(iters_first=opt.local_ba_its_first, iters_second=opt.local_ba_its_second,
-                  chi2_mono=opt.chi2_mono, chi2_stereo=opt.chi2_stereo,
-                  pcg_iters=opt.pcg_iters, schur="dense")
+        kw = local_ba_options(self.cfg)
         if not small and self.mesh.size > 1:
             self.ba_routes["dba"] += 1
             result = dba.distributed_bundle_adjust(

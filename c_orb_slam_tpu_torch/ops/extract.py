@@ -80,24 +80,48 @@ def subpixel_refine(score: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
     return torch.stack([dy, dx], dim=-1)
 
 
+def detect_levels(levels: list, cfg: OrbConfig) -> list:
+    """FAST score map of each pyramid level."""
+    return [fast.detect(img, float(cfg.ini_th_fast), float(cfg.min_th_fast),
+                        border=cfg.edge_threshold - 3, cell=cfg.cell_size)
+            for img in levels]
+
+
+def select_levels(scores: list, cfg: OrbConfig) -> list:
+    """(yx, response, valid, subpixel offset) of each level's keypoints,
+    taken from its score map within the level's feature budget."""
+    out = []
+    for score, budget in zip(scores, cfg.features_per_level()):
+        yx, resp, valid = select_keypoints(score, budget, cfg.cell_size)
+        out.append((yx, resp, valid, subpixel_refine(score, yx)))
+    return out
+
+
+def orient_levels(levels: list, picks: list, cfg: OrbConfig) -> list:
+    """Intensity-centroid angle of each level's keypoints."""
+    return [orient.ic_angle(img, pick[0], cfg.half_patch) for img, pick in zip(levels, picks)]
+
+
+def describe_levels(levels: list, picks: list, angles: list, seed: int) -> list:
+    """Steered BRIEF descriptors of each level's keypoints, sampled on
+    the blurred level."""
+    return [brief.compute_descriptors(pyramid.gaussian_blur(img), pick[0], ang, seed)
+            for img, pick, ang in zip(levels, picks, angles)]
+
+
 def extract_orb(image: torch.Tensor, cfg: OrbConfig, seed: int = 7) -> Keypoints:
     """ORB keypoints + descriptors of a grayscale (H, W) float32 image in
     [0, 255]; every level runs detection, selection, orientation, blur
-    and description."""
+    and description (one function each, over all levels)."""
     levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
+    picks = select_levels(detect_levels(levels, cfg), cfg)
+    angles = orient_levels(levels, picks, cfg)
+    descs = describe_levels(levels, picks, angles, seed)
     budgets = cfg.features_per_level()
     scales = cfg.scale_factors()
 
     parts = []
-    for lvl, img in enumerate(levels):
-        score = fast.detect(
-            img, float(cfg.ini_th_fast), float(cfg.min_th_fast),
-            border=cfg.edge_threshold - 3, cell=cfg.cell_size,
-        )
-        yx, resp, valid = select_keypoints(score, budgets[lvl], cfg.cell_size)
-        sub = subpixel_refine(score, yx)
-        ang = orient.ic_angle(img, yx, cfg.half_patch)
-        desc = brief.compute_descriptors(pyramid.gaussian_blur(img), yx, ang, seed)
+    for lvl, ((yx, resp, valid, sub), ang, desc) in enumerate(zip(picks, angles, descs)):
         yx_f = yx.to(torch.float32) + sub
         parts.append(
             Keypoints(

@@ -161,6 +161,29 @@ def load(name, **cut):
     return c, cfg, frames, traj
 
 
+def start(entry, cfg, frames, device):
+    """(System, track): System(cfg, device) with loop closing on and the
+    shipped vocabulary, after System.warmup() and the configuration's
+    warm-up frames; track(i) feeds frame i through the entry point of the
+    configuration's sensor."""
+    from c_orb_slam_tpu_torch.config import Sensor
+    from c_orb_slam_tpu_torch.system import System
+
+    stereo = entry["sensor"] == Sensor.STEREO
+    dt_frame = entry["dt_frame"]
+    sysm = System(cfg, device)
+    sysm.warmup()
+
+    def track(i):
+        if stereo:
+            return sysm.track_stereo(frames[i][0], frames[i][1], i * dt_frame)
+        return sysm.track_monocular(frames[i], i * dt_frame)
+
+    for i in range(entry["warmup"]):
+        track(i)
+    return sysm, track
+
+
 def run_config(name, entry, cfg, frames, traj, *, device):
     """One configuration's record (bench.py `_run_config`) from what
     `load` returns."""
@@ -170,23 +193,12 @@ def run_config(name, entry, cfg, frames, traj, *, device):
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
     from c_orb_slam_tpu_torch.ops import window_top2
     from c_orb_slam_tpu_torch.optim import ba
-    from c_orb_slam_tpu_torch.system import System
     from c_orb_slam_tpu_torch.tracking import TrackState
 
     device = torch.device(device)
     stereo = entry["sensor"] == Sensor.STEREO
     n_frames, warmup, dt_frame = entry["n_frames"], entry["warmup"], entry["dt_frame"]
-
-    sysm = System(cfg, device)  # loop closing on, the shipped vocabulary
-    sysm.warmup()
-
-    def track(i):
-        if stereo:
-            return sysm.track_stereo(frames[i][0], frames[i][1], i * dt_frame)
-        return sysm.track_monocular(frames[i], i * dt_frame)
-
-    for i in range(warmup):
-        track(i)
+    sysm, track = start(entry, cfg, frames, device)
     sysm.metrics.reset()  # the stages below cover the timed window
     ba.reset_failed_factorizations()
     window_top2.reset_launches()

@@ -15,6 +15,7 @@ visual-odometry points (reference: Tracking.cc:283-361, 801-865).
 from __future__ import annotations
 
 import collections
+import time
 from typing import Optional
 
 import numpy as np
@@ -296,6 +297,11 @@ class Tracking:
         # (Tracking.cc:488-505, System.cc:345-380).
         self.trajectory: list = []
         self.current_inliers = 0
+        # Host wall ms of the fused hot path's sub-stages, summed over
+        # frames (the JAX package's names and boundaries): read by
+        # tools/profile_stages.py from the real code path, so the profile
+        # cannot go stale against a copy of it.
+        self.stage_ms: dict = {}
         # In-flight frames (frame, dispatch record, timestamp), applied
         # `pipeline_depth` frames later (see track()).
         self._pending = collections.deque()
@@ -320,6 +326,11 @@ class Tracking:
                 self.trajectory[i] = (fid, T_new, parent_k, state, stamp)
         if self.ref_kf == k:
             self.ref_kf = parent_k
+
+    def _mark(self, name: str, t0: float) -> float:
+        t = time.perf_counter()
+        self.stage_ms[name] = self.stage_ms.get(name, 0.0) + (t - t0) * 1000
+        return t
 
     # ------------------------------------------------------------------
     def track(self, f: frame_mod.FrameData) -> Optional[np.ndarray]:
@@ -658,36 +669,28 @@ class Tracking:
         the dispatch record for _fused_apply, or None if the frame can't
         take the fused path. The local point set comes from the previous
         frame's covisibility (one frame stale)."""
+        t_in = time.perf_counter()
         vo_xyz_d, vo_valid_d = self._vo_arrays(f.xy.shape[0])
+        t0 = time.perf_counter()
+        vo_s = t0 - t_in
+        vo_host = isinstance(vo_valid_d, np.ndarray)
         n_queries = int((self.last_mp >= 0).sum())
-        if isinstance(vo_valid_d, np.ndarray):
+        if vo_host:
             # VO rows are queries too: counting them keeps VO mode alive
             # past the frame that entered it (the JAX package counts map
             # rows only, so its VO mode ends in LOST one frame later).
             n_queries += int(vo_valid_d.sum())
-            vo_xyz_d, vo_valid_d = to_device(self.device, vo_xyz_d, vo_valid_d)
         if n_queries < 10:
             return None
         local_pts = self._local_points(self._local_keyframes(self.last_mp))
         if len(local_pts) == 0:
             return None
+        t0 = self._mark("select", t0)
         cap = self.cfg.capacity.local_map_max_points
         pts_pad = np.full(cap, -1, np.int32)
         pts_pad[: min(len(local_pts), cap)] = local_pts[:cap]
         safe = np.maximum(pts_pad, 0)
-
-        dev = self.map.device
-        dev.flush()
-        last_mp_d, local_idx_d = to_device(
-            self.device, self.last_mp.astype(np.int32), pts_pad
-        )
-        frac = self.cfg.tracking.velocity_rotation_fraction
-        if self._chain is not None:
-            # Device pose chain: 1-frame prediction lag at any depth.
-            T_pred_d = _chain_predict(self._chain[0], self._chain[1], frac)
-            prev_pose_d = self._chain[0]
-            radius_mult = 1.0
-        else:
+        if self._chain is None:
             # Extrapolate across the actual lag; prev at 1-frame spacing so
             # the next on-chain prediction is a 1-frame velocity.
             T_pred = np.vstack([self.last_pose, [0, 0, 0, 1]])
@@ -696,11 +699,31 @@ class Tracking:
             for _ in range(len(self._pending) + 1):
                 T_prev = T_pred
                 T_pred = vel_h @ T_pred
+            lag = len(self._pending) + 1
+            radius_mult = (1.0, 1.5, 2.0)[min(lag - 1, 2)]
+        else:
+            radius_mult = 1.0
+        # _vo_arrays ran first, since the gate counts its rows: its time
+        # goes under "prep", where the JAX package calls it.
+        t0 = self._mark("prep", t0 - vo_s)
+        dev = self.map.device
+        dev.flush()
+        t0 = self._mark("flush", t0)
+        last_mp_d, local_idx_d = to_device(
+            self.device, self.last_mp.astype(np.int32), pts_pad
+        )
+        if vo_host:
+            vo_xyz_d, vo_valid_d = to_device(self.device, vo_xyz_d, vo_valid_d)
+        frac = self.cfg.tracking.velocity_rotation_fraction
+        if self._chain is not None:
+            # Device pose chain: 1-frame prediction lag at any depth.
+            T_pred_d = _chain_predict(self._chain[0], self._chain[1], frac)
+            prev_pose_d = self._chain[0]
+        else:
             T_pred_d, prev_pose_d = to_device(
                 self.device, T_pred[:3].astype(np.float32), T_prev[:3].astype(np.float32)
             )
-            lag = len(self._pending) + 1
-            radius_mult = (1.0, 1.5, 2.0)[min(lag - 1, 2)]
+        t0 = self._mark("upload", t0)
         head_args = (self.cfg, T_pred_d, last_mp_d, self.last_frame.octave,
                      self.last_frame.desc, vo_xyz_d, vo_valid_d, local_idx_d)
         tail_args = (f, self.K, self.inv_sigma2_levels, self._sf_dev)
@@ -711,9 +734,11 @@ class Tracking:
             *tail_args, radius_mult=radius_mult,
         )
         self._chain = (chain_pose, prev_pose_d)
+        t0 = self._mark("dispatch", t0)
         # The frame descriptors ride the same readback (per-frame point
         # descriptor refresh in _fused_postprocess).
         fut = fetch_async(*out, f.desc)
+        self._mark("prefetch", t0)
         return (fut, pts_pad, safe, self.last_mp, (head_args, tail_args))
 
     def _vo_arrays(self, n_feat: int):
@@ -752,7 +777,9 @@ class Tracking:
         bookkeeping. On failure ONE synchronous retry re-runs the step
         with a 3x stage-1 window (Tracking.cc:888-892)."""
         fut, pts_pad, safe, last_mp, (head_args, tail_args) = disp
+        t0 = time.perf_counter()
         *fetched, f_desc = fut.result()
+        self._mark("fetch", t0)
         ok, pose, mp = self._fused_postprocess(f, fetched, pts_pad, safe, last_mp, f_desc)
         if ok:
             return ok, pose, mp

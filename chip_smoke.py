@@ -112,6 +112,22 @@ and each record holds its bench.py gate, ran with loop closing on on this
 card with its power limit recorded, and launched window_top2; those
 launches count toward the kernel's.
 
+Phase 12 runs the port's profiling entry points in child processes:
+`python3 -m c_orb_slam_tpu_torch.tools.profile_stages --config mono_tum30
+--trace 5` (the counterpart of tools/profile_stages.py --tum30 and
+tools/profile_track_fine.py: stage and tracking sub-stage ms a frame, and a
+torch.profiler window of 5 frames: the device's busy and idle share,
+launches a frame, the device operations with the most time), then
+`python3 -m c_orb_slam_tpu_torch.tools.profile_kernels` at mono_tum30 and
+at stereo_kitti (the counterpart of tools/profile_kernels.py,
+profile_device_kernels.py, profile_mapping.py and profile_latency.py: each
+hot program's host ms, device ms, kernel ms, launches and launch floor,
+and the mapper's three dispatches split into enqueue, ready and fetch). It
+prints their records and fails unless each child exits 0 and every record
+has its fields, names this card with its power limit, and holds device
+fields read on the card (nonzero, the idle share within [0, 1]), and the
+tracking sub-stages sum to no more than the tracking stage.
+
 Exits nonzero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists each kernel.
@@ -2003,6 +2019,68 @@ def phase11(dev):
     return sum(rec["window_top2_launches"] for rec in recs)
 
 
+def _phase12_child(dev, kind, args, timeout):
+    """The records of one profiling tool run in a child process on the
+    card, printed; fails unless it exits 0 and each names this card with
+    its power limit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args, "--device", str(dev)], cwd=HERE,
+                       capture_output=True, text=True, timeout=timeout)
+    recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    for rec in recs:
+        print("phase12", json.dumps(rec), flush=True)
+    print(f"phase12 {' '.join(args[1:])} took {time.perf_counter() - t0:.1f} s", flush=True)
+    if r.returncode != 0 or not recs:
+        raise AssertionError(f"phase12: {' '.join(args)} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    for rec in recs:
+        if rec.get("device") != kind or not rec.get("power_limit_w"):
+            raise AssertionError(f"phase12: a record not of {kind} with its power limit: {rec}")
+    return recs
+
+
+def _positive(label, rec, keys):
+    for key in keys:
+        if not (isinstance(rec.get(key), (int, float)) and rec[key] > 0):
+            raise AssertionError(f"phase12 {label}: {key} missing or not positive: {rec}")
+
+
+def phase12(dev):
+    """The port's profiling entry points on the card, each in a child
+    process: profile_stages at mono_tum30 with a 5-frame trace window,
+    profile_kernels at mono_tum30 and at stereo_kitti. Prints their records
+    and fails unless every device field was read on the card."""
+    import torch
+    from c_orb_slam_tpu_torch.tools import profile_stages
+
+    kind = torch.cuda.get_device_name(dev)
+    [rec] = _phase12_child(dev, kind, ["c_orb_slam_tpu_torch.tools.profile_stages", "--config",
+                                       "mono_tum30", "--trace", "5"], 400)
+    _positive("profile_stages", rec, ("fps", "ms_per_frame", "frame_ms_median"))
+    sub = rec["track_substages"]
+    if set(sub) != {*profile_stages.SUBSTAGES, "tracking_other"}:
+        raise AssertionError(f"phase12: tracking sub-stages {sorted(sub)}")
+    if min(sub.values()) < 0:  # tracking_other < 0: the sub-stages exceed tracking
+        raise AssertionError(f"phase12: a negative tracking sub-stage: {sub}")
+    trace = rec["trace"]
+    _positive("profile_stages trace", trace,
+              ("ms_per_frame", "device_busy_share", "launches_per_frame"))
+    if not 0.0 <= trace["device_idle_share"] <= 1.0 or not trace["top_ops"]:
+        raise AssertionError(f"phase12: trace window off the card: {trace}")
+    for config in ("mono_tum30", "stereo_kitti"):
+        recs = _phase12_child(dev, kind, ["c_orb_slam_tpu_torch.tools.profile_kernels",
+                                          "--config", config], 400)
+        names = {r["program"] for r in recs}
+        for want in ("tracking._full_track_step", "tracking._optimize", "ba.bundle_adjust",
+                     "match.search_by_projection", "LocalMapping._ba_dispatch"):
+            if want not in names:
+                raise AssertionError(f"phase12 {config}: no record of {want}")
+        for r in recs:
+            _positive(f"{config} {r['program']}", r,
+                      ("host_ms", "device_ms", "kernel_ms", "launches", "launch_floor_ms",
+                       "op_floor_ms", "empty_launch_ms"))
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--phase10-rank"]:  # a child of phase 10b
         role, rank, world, store, out, device, sizes = sys.argv[2:9]
@@ -2047,6 +2125,9 @@ def main() -> int:
         t0 = time.perf_counter()
         launches += phase11(dev)
         print(f"phase11 took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase12(dev)
+        print(f"phase12 took {time.perf_counter() - t0:.1f} s", flush=True)
     except Exception as e:  # any failed phase fails the run, with its cause
         import traceback
 

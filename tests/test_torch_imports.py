@@ -36,5 +36,6 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
     for mod in ("parallel.mesh", "parallel.multihost", "parallel.dba", "parallel.sharded_ba",
                 "parallel.dpose_graph", "tools.weak_scaling", "tools.train_vocab",
-                "tools.convert_orbvoc", "tools.bench", "tools.bench_ab"):
+                "tools.convert_orbvoc", "tools.bench", "tools.bench_ab",
+                "tools.profile_stages", "tools.profile_kernels"):
         assert f"c_orb_slam_tpu_torch.{mod}" in r.stdout, (mod, r.stdout)
