@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from c_orb_slam_tpu_torch.bow.vocab import FrameBow, Vocabulary
+from c_orb_slam_tpu_torch.ops.segment import segment_sum
 from c_orb_slam_tpu_torch.utils.host import fetch
 
 _BIG = 1 << 30
@@ -51,8 +52,7 @@ def aggregate_bow_dev(word: torch.Tensor, weight: torch.Tensor, cap: int):
     # Slot `cap` takes the padding and any group beyond the capacity.
     gid = torch.where(live, torch.cumsum(first.to(torch.int64), 0) - 1, cap)
     gid = gid.clamp(max=cap)
-    acc = torch.zeros(cap + 1, dtype=torch.float32, device=word.device)
-    acc = acc.index_add(0, gid, torch.where(live, wt_s, torch.zeros_like(wt_s)))[:cap]
+    acc = segment_sum(torch.where(live, wt_s, torch.zeros_like(wt_s)), gid, cap + 1)[:cap]
     # Every write to one slot carries the same word, so duplicates agree.
     uniq = torch.full((cap + 1,), _BIG, dtype=torch.int32, device=word.device)
     uniq = uniq.scatter(0, gid, w_s)[:cap]
@@ -98,8 +98,7 @@ def _score_all(
     dev = q_word.device
     idx = torch.where(q_word >= 0, q_word, n_words).to(torch.int64)
     live = q_word >= 0
-    dense = torch.zeros(n_words + 1, dtype=torch.float32, device=dev)
-    dense = dense.index_add(0, idx, torch.where(live, q_weight, 0.0))
+    dense = segment_sum(torch.where(live, q_weight, 0.0), idx, n_words + 1)
     has = torch.zeros(n_words + 1, dtype=torch.bool, device=dev)
     has = has.index_put((idx,), live)  # writes to one slot all agree
 

@@ -155,17 +155,12 @@ class TrackingConfig:
     # Stereo keyframe: create up to this many closest new points
     # (reference: Tracking.cc:1123).
     max_new_stereo_points: int = 100
-    # Steady-state tracking pipeline depth: frame t's device step is
-    # applied at frame t+depth (sooner when its readback lands early —
-    # track() drains opportunistically). The device pose chain keeps the
-    # constant-velocity prediction at 1-frame lag regardless of depth, so
-    # depth only delays host bookkeeping (keyframe decisions, map
-    # updates). 3 covers the ~35-65 ms dispatch->host-visible result
-    # latency of a remote-attached chip at ~10-15 ms host work per frame.
-    # 0 = auto: depth 3 on an accelerator backend (there IS readback
-    # latency to hide), lock-step 1 on CPU (no latency to hide, and the
-    # stale bookkeeping of a deep pipeline measurably destabilizes
-    # rotation-heavy sequences while buying nothing).
+    # Ignored by the port; kept so both packages read the same
+    # configurations. In the JAX package it bounds the frames in flight
+    # (0 = auto: 3 on an accelerator, 1 on the CPU), to hide a remote
+    # chip's readback latency. The port applies every in-flight frame at
+    # the next track() on every device, waiting for its readback (the
+    # device is done when the host ends its enqueue), so no depth binds.
     pipeline_depth: int = 0
 
 

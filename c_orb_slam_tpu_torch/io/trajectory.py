@@ -7,6 +7,8 @@ SaveTrajectoryKITTI), host-side numpy throughout.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -39,6 +41,14 @@ def save_kitti(path: str, poses_cw):
             tw = -R.T @ Tcw[:, 3]
             Twc = np.concatenate([R.T, tw[:, None]], axis=1)
             f.write(" ".join(f"{v:.6e}" for v in Twc.reshape(-1)) + "\n")
+
+
+def sha256(poses_cw, stamps) -> str:
+    """SHA-256 of a trajectory, its stamps and then its poses as float32
+    bytes: equal only when two runs gave the same poses, bit for bit."""
+    h = hashlib.sha256(np.asarray(stamps, np.float32).tobytes())
+    h.update(np.asarray(poses_cw, np.float32).tobytes())
+    return h.hexdigest()
 
 
 def centers_from_cw(poses_cw: np.ndarray) -> np.ndarray:

@@ -256,7 +256,8 @@ class _GbaJob:
     implicit-Schur PCG: advance() queues ONE LM iteration (no readback),
     walking the two-stage schedule of bundle_adjust (huber stage -> inlier
     reclassification -> clean stage, ``ba.TwoStage``) one chunk per call.
-    ready() goes true once the final readback has landed."""
+    ready() goes true once the final readback is dispatched; the apply
+    then waits for it."""
 
     def __init__(self, problem, kfs, kf_serials, pts, pt_serials,
                  iters_first, iters_second, pcg_iters,
@@ -268,10 +269,6 @@ class _GbaJob:
         self.solve = self._solve(problem, mesh, iters_first, iters_second, pcg_iters,
                                  chi2_mono, chi2_stereo)
         self._fut = None
-        # CPU: apply as soon as the fetch is dispatched, so the apply
-        # frame never depends on timing (same determinism rationale as
-        # LocalMapping's one-frame defer).
-        self._fixed = problem.points.device.type == "cpu"
 
     def _solve(self, problem, mesh, iters_first, iters_second, pcg_iters, chi2_mono,
                chi2_stereo) -> ba_mod.TwoStage:
@@ -297,8 +294,8 @@ class _GbaJob:
         if self.solve.done:
             self._fut = fetch_async(*self._solution())
 
-    def ready(self, force: bool) -> bool:
-        return self._fut is not None and (force or self._fixed or self._fut.done())
+    def ready(self) -> bool:
+        return self._fut is not None
 
     def result(self):
         return self._fut.result()
@@ -378,11 +375,6 @@ class LoopClosing:
         # correction window (reference: RequestStop/Release,
         # LoopClosing.cc:408,582).
         self.mapper = None
-        # Detection-scoring readbacks defer (bounded) on a card to keep
-        # the frame loop non-blocking; on the CPU the result is already
-        # local and deferral only adds load-dependent timing variance.
-        self._defer_detect = self.device.type != "cpu"
-        self._step_waits = 0
         # Set by System so a loop correction also fixes the tracker state.
         self.on_pose_correction = None
         # Fired at the top of _correct_loop, BEFORE any map mutation: the
@@ -497,9 +489,15 @@ class LoopClosing:
 
     def step(self, force: bool = False) -> bool:
         """Apply the pending detection, if any (called once per frame by
-        System inside the tracking readback window). Defers (bounded)
-        while the scoring readback is still in flight so the frame loop
-        never blocks on loop-rate work."""
+        System inside the tracking readback window), waiting for its
+        scoring readback. Every stage of the loop closer takes its
+        readback at the first call after its dispatch, on every device:
+        the CPU's schedule. The JAX package polls the readback on an
+        accelerator, to hide a remote chip's latency; on the card the
+        device is done when the host ends its enqueue, and a polled
+        schedule lets the result follow the host's load (PERF.md §6).
+        `force` (the JAX package's signature) changes nothing here."""
+        del force
         pd = self._pending_detect
         if pd is None:
             return False
@@ -507,11 +505,6 @@ class LoopClosing:
             # An earlier loop event is mid-flight: hold the pending
             # detection (the dead-time gate re-checks at apply).
             return False
-        if self._defer_detect and not force and not pd[-1].done():
-            if self._step_waits < 5:
-                self._step_waits += 1
-                return False
-        self._step_waits = 0
         self._pending_detect = None
         kf, kf_serial, connected, node, w, wt, fut = pd
         if not self.map.kf_valid[kf] or self.map.kf_serial[kf] != kf_serial:
@@ -581,7 +574,7 @@ class LoopClosing:
             if self.sim3_job is None and self.correction_job is None:
                 break
         while self.gba_job is not None:
-            self._advance_gba(force=True)
+            self._advance_gba()
         return closed
 
     def _dispatch(self, kf: int):
@@ -695,8 +688,6 @@ class LoopClosing:
                 if not force:
                     return False
                 continue
-            if not (force or job.fut.done()):
-                return False
             accepted = self._sim3_apply_stage(job)
             if accepted:
                 return True
@@ -1113,13 +1104,12 @@ class LoopClosing:
         if job is None:
             return False
         if job.stage == "fuse":
-            # Double-buffer: dispatch the next block, then apply one
-            # landed block — per frame cost = one dispatch + one apply.
+            # Double-buffer: dispatch the next block, then apply the
+            # previous one, waiting for its readback — per frame cost =
+            # one dispatch + one apply.
             self._dispatch_next_fuse(job)
             while job.fuse_next < len(job.fuse_blocks):
                 real_gs, pts_p, fut = job.fuse_blocks[job.fuse_next]
-                if not (force or fut.done()):
-                    return False
                 job.n_fused += self._apply_fuse_block(real_gs, pts_p, fut)
                 job.fuse_next += 1
                 if not force:
@@ -1152,8 +1142,6 @@ class LoopClosing:
             if not force:
                 return False
         if job.stage == "pg_fetch":
-            if not (force or job.fetch_fut.done()):
-                return False
             self._apply_pose_graph_result(job)
             job.stage = "arm_gba"
             if not force:
@@ -1393,15 +1381,15 @@ class LoopClosing:
         self.gba_job = (_ShardedGbaJob if self.mesh.size > 1 else _GbaJob)(mesh=self.mesh, **job)
         self.gba_job.advance()  # dispatch the first chunk now
 
-    def _advance_gba(self, force: bool = False):
+    def _advance_gba(self):
         """Called once per tracked frame: push the background solve one
-        chunk forward; apply when finished (force blocks out the final
-        readback — drain/shutdown only)."""
+        chunk forward; apply when finished, waiting for the final
+        readback."""
         job = self.gba_job
         if job is None:
             return False
         job.advance()
-        if not job.ready(force):
+        if not job.ready():
             return False
         self.gba_job = None
         self._apply_gba(job)

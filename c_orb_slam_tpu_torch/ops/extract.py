@@ -29,6 +29,14 @@ class Keypoints(NamedTuple):
     desc: torch.Tensor  # (N, 8) int32 packed 256-bit
     valid: torch.Tensor  # (N,) bool
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[0]
+
+    def count(self) -> torch.Tensor:
+        """The live keypoints, as a () int32 tensor on the batch's device."""
+        return self.valid.sum(dtype=torch.int32)
+
 
 def _top_k(x: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last dim, lowest index

@@ -68,6 +68,13 @@ def _segment_test(diff: torch.Tensor, threshold: float):
     return corner, torch.where(corner, score, zero)
 
 
+def fast_response(image: torch.Tensor, threshold: float):
+    """Segment test + score for every pixel (single-threshold entry):
+    (corner (H, W) bool, score (H, W) float32)."""
+    diff = _circle_stack(image) - image[None]
+    return _segment_test(diff, threshold)
+
+
 def _cell_any(mask: torch.Tensor, cell: int) -> torch.Tensor:
     """Per-pixel: does this pixel's cell contain any True? (H, W) bool."""
     h, w = mask.shape

@@ -82,3 +82,13 @@ def best_two(d: torch.Tensor):
     one = torch.nn.functional.one_hot(best_idx, d.shape[-1]).to(torch.bool)
     d2 = torch.where(one, torch.full_like(d, INVALID_DIST), d)
     return best, best_idx.to(torch.int32), d2.amin(dim=-1)
+
+
+def mutual_best(d: torch.Tensor):
+    """Mutual nearest-neighbour test on a (N1, N2) distance matrix:
+    (best_idx_rows (N1,) int32, mutual (N1,) bool). Ties go to the lowest
+    index, as jnp.argmin."""
+    row_best = torch.argmin(d, dim=1)
+    col_best = torch.argmin(d, dim=0)
+    mutual = col_best[row_best] == torch.arange(d.shape[0], device=d.device)
+    return row_best.to(torch.int32), mutual

@@ -4,13 +4,13 @@ Counterpart of c_orb_slam_tpu/optim/ba.py (reference: Optimizer.cc:49
 BundleAdjustment, :453-778 LocalBundleAdjustment and g2o's
 block_solver.hpp Schur solve). The camera-point graph is a flat
 observation list (obs_cam, obs_pt); one LM iteration is
-residuals/Jacobians -> per-camera and per-point normal blocks (index_add)
--> the reduced camera system S = Hcc - W Hpp^-1 Wᵀ -> point
-back-substitution. Two routes solve the reduced system, chosen by
+residuals/Jacobians -> per-camera and per-point normal blocks (segment
+sums in a fixed order, ops/segment.py) -> the reduced camera system
+S = Hcc - W Hpp^-1 Wᵀ -> point back-substitution. Two routes solve the reduced system, chosen by
 ``schur``: "dense" forms S and solves it by Cholesky (local BA, small
 C); "pcg" never forms S or W and runs preconditioned conjugate gradients
 on the implicit matvec S·x = Hcc·x − W·Hpp⁻¹·Wᵀ·x, two gathers and two
-index_adds an application (global BA, where the dense W would not fit).
+segment sums an application (global BA, where the dense W would not fit).
 ``schur`` defaults to "dense" here (the JAX package defaults to "pcg").
 Fixed cameras get zero Jacobians; invalid slots are masked. The iteration
 and the two-stage schedule (``TwoStage``) are written once over the
@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from c_orb_slam_tpu_torch.geometry import se3
+from c_orb_slam_tpu_torch.ops import segment
 from c_orb_slam_tpu_torch.optim import residuals as res
 from c_orb_slam_tpu_torch.parallel.mesh import Mesh, pcg
 
@@ -78,25 +79,44 @@ def _obs_terms(p: BAProblem, cam_T, points, use_huber, chi2_mono, chi2_stereo):
     return r, Jc, Jp, w, c2
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg.long(), x)
+class Segs(NamedTuple):
+    """The summing order of a problem's three segment sums: by camera, by
+    point and by the flat (point, camera) key of the W blocks. The
+    observations' ids never change within a solve, so ``lm_solve`` builds
+    it once."""
+
+    cam: segment.Segments
+    pt: segment.Segments
+    key: Optional[segment.Segments]  # dense route only: None where W is never formed
 
 
-def _normal_sums(p: BAProblem, r, Jc, Jp, w):
+def segs_of(p: BAProblem, w_blocks: bool = True) -> Segs:
+    """`p`'s ``Segs``; the (point, camera) key, whose offsets span P*C
+    (67M at the global BA's bucket), only with `w_blocks`."""
+    C = p.cam_T.shape[0]
+    P = p.points.shape[0]
+    key = (segment.segments(p.obs_pt.long() * C + p.obs_cam.long(), P * C) if w_blocks
+           else None)
+    return Segs(segment.segments(p.obs_cam, C), segment.segments(p.obs_pt, P), key)
+
+
+def _normal_sums(p: BAProblem, r, Jc, Jp, w, segs: Optional[Segs] = None):
     """Undamped normal-equation blocks, segment sums over the observations
     of `p`: Hcc (C,6,6), gc (C,6), Hpp (P,3,3), gp (P,3). Linear in the
     observations, so a sharded solve sums shards' partials
-    (parallel/dba.py, parallel/sharded_ba.py)."""
-    C = p.cam_T.shape[0]
-    P = p.points.shape[0]
+    (parallel/dba.py, parallel/sharded_ba.py). Each side is one sum of
+    concatenated blocks, as in the JAX package's ``_assemble``."""
+    segs = segs or segs_of(p, w_blocks=False)
+    O = r.shape[0]
     Jcw = Jc * w[:, None, None]
     Jpw = Jp * w[:, None, None]
-    Hcc = _segment_sum(Jcw.transpose(1, 2) @ Jc, p.obs_cam, C)
-    gc = _segment_sum((Jcw.transpose(1, 2) @ r[..., None])[..., 0], p.obs_cam, C)
-    Hpp = _segment_sum(Jpw.transpose(1, 2) @ Jp, p.obs_pt, P)
-    gp = _segment_sum((Jpw.transpose(1, 2) @ r[..., None])[..., 0], p.obs_pt, P)
-    return Hcc, gc, Hpp, gp
+    cam = segment.segment_sum(torch.cat([
+        (Jcw.transpose(1, 2) @ Jc).reshape(O, 36),
+        (Jcw.transpose(1, 2) @ r[..., None])[..., 0]], 1), segs.cam)
+    pt = segment.segment_sum(torch.cat([
+        (Jpw.transpose(1, 2) @ Jp).reshape(O, 9),
+        (Jpw.transpose(1, 2) @ r[..., None])[..., 0]], 1), segs.pt)
+    return cam[:, :36].reshape(-1, 6, 6), cam[:, 36:], pt[:, :9].reshape(-1, 3, 3), pt[:, 9:]
 
 
 def _damp(p: BAProblem, Hcc, Hpp, lm_lambda):
@@ -139,14 +159,12 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
-def _w_blocks(p: BAProblem, Jc, Jp, w):
+def _w_blocks(p: BAProblem, Jc, Jp, w, segs: Optional[Segs] = None):
     """Dense W (6C x 3P) as per-observation 6x3 blocks summed by the flat
     (point, camera) key: (P*C, 18). Linear in the observations."""
-    C = p.cam_T.shape[0]
-    P = p.points.shape[0]
+    segs = segs or segs_of(p)
     B = (Jc * w[:, None, None]).transpose(1, 2) @ Jp  # (O, 6, 3)
-    key = p.obs_pt.long() * C + p.obs_cam.long()
-    return _segment_sum(B.reshape(-1, 18), key, P * C)
+    return segment.segment_sum(B.reshape(-1, 18), segs.key)
 
 
 def _dense_solve(Wpc, Hcc, Hpp_inv, gc, gp, free_cam):
@@ -204,16 +222,18 @@ def failed_factorizations(device) -> int:
     return 0 if n is None else int(n)
 
 
-def _w_times(p: BAProblem, Jc, Jp, w, y):
+def _w_times(p: BAProblem, Jc, Jp, w, y, segs: Optional[Segs] = None):
     """W @ y for per-point y (P, 3) -> (C, 6), without forming W."""
     s = (Jp @ y[p.obs_pt.long()][..., None])[..., 0] * w[:, None]  # (O, 3)
-    return _segment_sum((Jc.transpose(1, 2) @ s[..., None])[..., 0], p.obs_cam, p.cam_T.shape[0])
+    segs = segs or segs_of(p, w_blocks=False)
+    return segment.segment_sum((Jc.transpose(1, 2) @ s[..., None])[..., 0], segs.cam)
 
 
-def _wt_times(p: BAProblem, Jc, Jp, w, x):
+def _wt_times(p: BAProblem, Jc, Jp, w, x, segs: Optional[Segs] = None):
     """Wᵀ @ x for per-camera x (C, 6) -> (P, 3), without forming W."""
     u = (Jc @ x[p.obs_cam.long()][..., None])[..., 0] * w[:, None]  # (O, 3)
-    return _segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], p.obs_pt, p.points.shape[0])
+    segs = segs or segs_of(p, w_blocks=False)
+    return segment.segment_sum((Jp.transpose(1, 2) @ u[..., None])[..., 0], segs.pt)
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +260,9 @@ def _normal(mesh: Mesh, ps, terms, lam, dense: bool) -> list:
     """Each shard's partial Hcc, gc, Hpp and gp (and W blocks), joined by
     one psum, then damped."""
 
-    def partial(p, t):
-        r, Jc, Jp, w = t
-        sums = _normal_sums(p, r, Jc, Jp, w)
-        return (*sums, _w_blocks(p, Jc, Jp, w)) if dense else sums
+    def partial(p, t):  # t: (r, Jc, Jp, w[, Segs])
+        sums = _normal_sums(p, *t)
+        return (*sums, _w_blocks(p, *t[1:])) if dense else sums
 
     def damp(p, s, lam_):
         Hcc, Hpp_inv = _damp(p, s[0], s[2], lam_)
@@ -256,13 +275,13 @@ def _normal(mesh: Mesh, ps, terms, lam, dense: bool) -> list:
 def _wt_x(mesh: Mesh, ps, terms, x):
     """Wᵀ x for replicated per-camera x (C, 6): (P, 3), a psum."""
     return mesh.psum(mesh.per_shard(
-        lambda p, t, x_: _wt_times(p, t[1], t[2], t[3], x_), ps, terms, x))
+        lambda p, t, x_: _wt_times(p, *t[1:4], x_, *t[4:]), ps, terms, x))
 
 
 def _w_y(mesh: Mesh, ps, terms, y):
     """W y for replicated per-point y (P, 3): (C, 6), a psum."""
     return mesh.psum(mesh.per_shard(
-        lambda p, t, y_: _w_times(p, t[1], t[2], t[3], y_), ps, terms, y))
+        lambda p, t, y_: _w_times(p, *t[1:4], y_, *t[4:]), ps, terms, y))
 
 
 def _schur_matvec(mesh: Mesh, ps, terms, nrm, x):
@@ -296,12 +315,15 @@ def _solve_cameras(mesh: Mesh, ps, terms, nrm, dense: bool, pcg_iters: int):
 
 
 def _iteration(mesh: Mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo,
-               pcg_iters: int = 40, schur: str = "dense"):
+               pcg_iters: int = 40, schur: str = "dense", segs: Optional[list] = None,
+               steps: bool = False):
     """One damped GN step over observation shards. Returns per-shard
-    (cam_T, points)."""
+    (cam_T, points), and with `steps` also dc (C, 6) and dp (P, 3).
+    `segs` holds each shard's ``Segs`` (built here when None)."""
+    segs = segs or mesh.per_shard(lambda p: segs_of(p, schur == "dense"), ps)
     terms = mesh.per_shard(
-        lambda p, T, X: _obs_terms(p, T, X, use_huber, chi2_mono, chi2_stereo)[:4],
-        ps, cam_T, points)
+        lambda p, T, X, sg: (*_obs_terms(p, T, X, use_huber, chi2_mono, chi2_stereo)[:4], sg),
+        ps, cam_T, points, segs)
     nrm = _normal(mesh, ps, terms, lam, schur == "dense")
     dc = _solve_cameras(mesh, ps, terms, nrm, schur == "dense", pcg_iters)
     Wt_dc = _wt_x(mesh, ps, terms, dc)
@@ -310,10 +332,11 @@ def _iteration(mesh: Mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_st
         dp = (n.Hpp_inv @ (-n.gp - wt)[..., None])[..., 0]  # Hpp^-1 (-gp - Wᵀ dc)
         dp = dp * p.point_valid.to(dp.dtype)[:, None]
         new_T = se3.compose(se3.exp(d), T)
-        return torch.where(n.free[:, None, None] > 0, new_T, T), X + dp
+        return torch.where(n.free[:, None, None] > 0, new_T, T), X + dp, dp
 
     new = mesh.replicated(update, ps, nrm, dc, Wt_dc, cam_T, points)
-    return [t[0] for t in new], [t[1] for t in new]
+    out = [t[0] for t in new], [t[1] for t in new]
+    return (*out, dc, [t[2] for t in new]) if steps else out
 
 
 def _error(mesh: Mesh, ps, cam_T, points, use_huber, chi2_mono, chi2_stereo):
@@ -422,9 +445,12 @@ def lm_solve(mesh: Mesh, ps, iters_first: int, iters_second: int, chi2_mono: flo
     """The two-stage solve over observation shards ``ps`` (cameras and
     points replicated), not yet stepped."""
 
+    # The ids stay; obs_valid alone changes.
+    segs = mesh.per_shard(lambda p: segs_of(p, schur == "dense"), ps)
+
     def iteration(ps_, T, X, lam, use_huber):
         return _iteration(mesh, ps_, T, X, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters,
-                          schur)
+                          schur, segs)
 
     return TwoStage(mesh, ps, [q.cam_T for q in ps], [q.points for q in ps], iteration,
                     mesh.replicated, iters_first, iters_second, chi2_mono, chi2_stereo)
@@ -432,6 +458,20 @@ def lm_solve(mesh: Mesh, ps, iters_first: int, iters_second: int, chi2_mono: flo
 
 def _one_shard(p: BAProblem) -> Mesh:
     return Mesh([p.points.device])
+
+
+def ba_iteration(p: BAProblem, lm_lambda, use_huber: bool, chi2_mono: float,
+                 chi2_stereo: float, pcg_iters: int, schur: str = "pcg",
+                 obs_pt_sorted: bool = False):
+    """One damped GN step on one device, with the JAX package's signature
+    (``_iteration`` on a one-shard mesh). Returns (new_cam_T, new_points,
+    dc (C, 6), dp (P, 3)). `obs_pt_sorted` is accepted and not needed: the
+    segment sums sort their ids themselves."""
+    del obs_pt_sorted
+    lam = torch.as_tensor(lm_lambda, dtype=torch.float32, device=p.points.device)
+    T, X, dc, dp = _iteration(_one_shard(p), [p], [p.cam_T], [p.points], [lam], use_huber,
+                              chi2_mono, chi2_stereo, pcg_iters, schur, steps=True)
+    return T[0], X[0], dc[0], dp[0]
 
 
 def _total_error(p, cam_T, points, use_huber, chi2_mono, chi2_stereo):

@@ -11,7 +11,8 @@ Vertices are (K, 8) packed Sim3, edges fixed-shape index arrays. Each GN
 iteration: ``torch.func.jacrev`` under ``vmap`` of the 7-dof relative-log
 residual wrt both endpoint tangents -> per-edge (7, 7) Jacobian blocks;
 the normal system is never materialized — PCG runs on an implicit matvec
-built from two gathers and an ``index_add``, with the block-diagonal
+built from two gathers and a segment sum in a fixed order
+(ops/segment.py; the JAX package's ``.at[].add``), with the block-diagonal
 (7x7 per vertex) inverse as preconditioner. ``GraphSolve`` holds the
 iteration once, over the edge shards of a mesh: one shard here,
 several in parallel/dpose_graph.
@@ -25,6 +26,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from c_orb_slam_tpu_torch.geometry import sim3
+from c_orb_slam_tpu_torch.ops import segment
 from c_orb_slam_tpu_torch.parallel.mesh import Mesh, pcg
 
 
@@ -86,6 +88,11 @@ class GraphSolve:
         sharded = {f: mesh.shard(getattr(p, f)) for f in _EDGES}
         self.edges = [{f: v[i] for f, v in sharded.items()} for i in range(mesh.n_local)]
         self.verts = mesh.replicate(p.vertices if verts is None else verts)
+        # Every vertex sum adds the edges' i-side rows, then their j-side
+        # rows, each in edge order: one order for the whole solve.
+        K = self.verts[0].shape[0]
+        self.segs = [segment.segments(torch.cat([e["edge_i"], e["edge_j"]]), K)
+                     for e in self.edges]
 
         def masks(v, vf, vv):
             scale_mask = torch.ones(7, dtype=v.dtype, device=v.device)
@@ -105,7 +112,6 @@ class GraphSolve:
 
     def step(self, pcg_iters: int = 50):
         mesh, live = self.mesh, self.live
-        K = self.verts[0].shape[0]
 
         def local(e, v):
             ei, ej = e["edge_i"].long(), e["edge_j"].long()
@@ -115,40 +121,38 @@ class GraphSolve:
 
         t = mesh.per_shard(local, self.edges, self.verts)
 
-        def zeros(v, *shape):
-            return torch.zeros((K, *shape), dtype=v.dtype, device=v.device)
+        def to_vertices(sg, at_i, at_j):  # the edges' i-side and j-side rows, summed
+            return segment.segment_sum(torch.cat([at_i, at_j]), sg)
 
-        def grad_part(tt, v):  # g = -Jᵀ W r, scattered to vertices
+        def grad_part(tt, sg):  # g = -Jᵀ W r, scattered to vertices
             ei, ej, r, Ji, Jj, w = tt
             rw = r * w[:, None]
-            gi = -torch.einsum("eab,ea->eb", Ji, rw)
-            gj = -torch.einsum("eab,ea->eb", Jj, rw)
-            return zeros(v, 7).index_add(0, ei, gi).index_add(0, ej, gj)
+            return to_vertices(sg, -torch.einsum("eab,ea->eb", Ji, rw),
+                               -torch.einsum("eab,ea->eb", Jj, rw))
 
-        def hdiag_part(tt, v):  # block-diagonal preconditioner blocks
+        def hdiag_part(tt, sg):  # block-diagonal preconditioner blocks
             ei, ej, r, Ji, Jj, w = tt
-            Hii = torch.einsum("eab,eac->ebc", Ji * w[:, None, None], Ji)
-            Hjj = torch.einsum("eab,eac->ebc", Jj * w[:, None, None], Jj)
-            return zeros(v, 7, 7).index_add(0, ei, Hii).index_add(0, ej, Hjj)
+            return to_vertices(sg, torch.einsum("eab,eac->ebc", Ji * w[:, None, None], Ji),
+                               torch.einsum("eab,eac->ebc", Jj * w[:, None, None], Jj))
 
         g = mesh.replicated(lambda g_, lv: g_ * lv,
-                            mesh.psum(mesh.per_shard(grad_part, t, self.verts)), live)
+                            mesh.psum(mesh.per_shard(grad_part, t, self.segs)), live)
         Hdiag_inv = mesh.replicated(
             lambda h: torch.linalg.inv_ex(
                 h + 1e-5 * torch.eye(7, dtype=h.dtype, device=h.device))[0],
-            mesh.psum(mesh.per_shard(hdiag_part, t, self.verts)))
+            mesh.psum(mesh.per_shard(hdiag_part, t, self.segs)))
 
         def matvec(x):
             x = mesh.replicated(lambda x_, lv: x_ * lv, x, live)
 
-            def part(tt, x_):  # residual-space y = J x, back through Jᵀ W
+            def part(tt, sg, x_):  # residual-space y = J x, back through Jᵀ W
                 ei, ej, r, Ji, Jj, w = tt
                 y = torch.einsum("eab,eb->ea", Ji, x_[ei]) + torch.einsum("eab,eb->ea", Jj, x_[ej])
                 y = y * w[:, None]
-                out = zeros(x_, 7).index_add(0, ei, torch.einsum("eab,ea->eb", Ji, y))
-                return out.index_add(0, ej, torch.einsum("eab,ea->eb", Jj, y))
+                return to_vertices(sg, torch.einsum("eab,ea->eb", Ji, y),
+                                   torch.einsum("eab,ea->eb", Jj, y))
 
-            out = mesh.psum(mesh.per_shard(part, t, x))
+            out = mesh.psum(mesh.per_shard(part, t, self.segs, x))
             # tiny damping keeps PCG positive-definite
             return mesh.replicated(lambda o, x_, lv: (o + 1e-5 * x_) * lv, out, x, live)
 

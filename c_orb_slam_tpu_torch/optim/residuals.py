@@ -14,6 +14,11 @@ import torch
 from c_orb_slam_tpu_torch.geometry import camera, se3, so3
 
 
+def transform_points(T: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
+    """World points into the camera frame of T (3, 4)."""
+    return se3.apply(T, xw)
+
+
 def residual_and_jacobians(T, xw, obs, K, bf, is_stereo):
     """Per-observation residual (3,), pose Jacobian (3,6), point Jacobian
     (3,3) — batched over leading dims of xw/obs."""

@@ -18,7 +18,7 @@ itself is partitioned across the mesh, not only the observation list
 
 The same two-stage robust LM schedule as optim/ba.bundle_adjust
 (``ba.TwoStage``) over its own iteration; only the partitioning differs. Left behind from the JAX body: the one-hot matmul
-camera scatter (a TPU workaround; ``index_add_`` here) and the in-body
+camera scatter (a TPU workaround; an ordered segment sum here) and the in-body
 argsort (the segment sums need no sorted ids, so the inlier mask is in
 slab order as it is). ``lower_solve``, which exists to show HLO to the
 JAX weak-scaling tool, has no twin: the mesh's collective counts
@@ -154,13 +154,15 @@ class _Blocks(NamedTuple):
     gp: torch.Tensor  # (P_loc, 3)
 
 
-def _iteration(mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters):
-    """One damped GN step, camera Schur system sharded over camera blocks."""
+def _iteration(mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters,
+               segs):
+    """One damped GN step, camera Schur system sharded over camera blocks;
+    `segs` holds each shard's ``ba.Segs``."""
     C = ps[0].cam_T.shape[0]
     Cs = C // mesh.size
     terms = mesh.per_shard(
-        lambda p, T, X: ba._obs_terms(p, T, X, use_huber, chi2_mono, chi2_stereo)[:4],
-        ps, cam_T, points,
+        lambda p, T, X, sg: (*ba._obs_terms(p, T, X, use_huber, chi2_mono, chi2_stereo)[:4], sg),
+        ps, cam_T, points, segs,
     )
     sums = mesh.per_shard(lambda p, t: ba._normal_sums(p, *t), ps, terms)
 
@@ -183,14 +185,14 @@ def _iteration(mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo, 
     blk = mesh.per_shard(damp, ps, cam_acc, sums, free_s, lam)
 
     def w_times_local(p, t, b, y):  # W Hpp^-1 y on the shard, full (C, 6)
-        return ba._w_times(p, t[1], t[2], t[3], (b.Hpp_inv @ y[..., None])[..., 0])
+        return ba._w_times(p, *t[1:4], (b.Hpp_inv @ y[..., None])[..., 0], t[4])
 
     def matvec(x_s):
         """S @ x with x sharded (C/D, 6): all_gather(6C) + psum_scatter(6C)."""
         x_s = mesh.per_shard(lambda x, fs: x * fs, x_s, free_s)
         x = mesh.all_gather(x_s)
         z_part = mesh.per_shard(
-            lambda p, t, b, x_: w_times_local(p, t, b, ba._wt_times(p, t[1], t[2], t[3], x_)),
+            lambda p, t, b, x_: w_times_local(p, t, b, ba._wt_times(p, *t[1:4], x_, t[4])),
             ps, terms, blk, x)
         z_s = mesh.psum_scatter(z_part)
         return mesh.per_shard(
@@ -210,7 +212,7 @@ def _iteration(mesh, ps, cam_T, points, lam, use_huber, chi2_mono, chi2_stereo, 
 
     # Back-substitute point updates: purely local.
     def points_update(p, t, b, d, X):
-        Wt_dc = ba._wt_times(p, t[1], t[2], t[3], d)
+        Wt_dc = ba._wt_times(p, *t[1:4], d, t[4])
         dp = (b.Hpp_inv @ (-b.gp - Wt_dc)[..., None])[..., 0]
         return X + dp * p.point_valid.to(dp.dtype)[:, None]
 
@@ -230,9 +232,11 @@ def map_sharded_solve(p: ba.BAProblem, mesh: Mesh, iters_first: int = 5,
     problem."""
     pp = partition_problem(p, mesh.size)
     ps = _shards(pp, mesh)
+    segs = mesh.per_shard(lambda p_: ba.segs_of(p_, w_blocks=False), ps)  # no W formed
 
     def iteration(ps_, T, X, lam, use_huber):
-        return _iteration(mesh, ps_, T, X, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters)
+        return _iteration(mesh, ps_, T, X, lam, use_huber, chi2_mono, chi2_stereo, pcg_iters,
+                          segs)
 
     return ba.TwoStage(mesh, ps, [q.cam_T for q in ps], [q.points for q in ps], iteration,
                        mesh.per_shard, iters_first, iters_second, chi2_mono, chi2_stereo), pp

@@ -8,14 +8,16 @@ first frame, and the clock over the frames after the warm-up ones (on a
 card with a synchronize before it stops: the pipelined readback leaves
 work in flight). The shutdown drain and the gates come after the clock.
 
-    python3 -m c_orb_slam_tpu_torch.tools.bench [--config NAME | --all] [--repeat N] [--device cuda|cpu]
+    python3 -m c_orb_slam_tpu_torch.tools.bench [--config NAME | --all] [--repeat N] [--max-frames N] [--device cuda|cpu]
 
 With no argument it prints one JSON line for the headline configuration,
 mono_tum30, whose metric keeps bench.py's name
 ``tracked_frames_per_sec_1chip``; ``--config NAME`` prints that
 configuration's line; ``--all`` prints mono_fast10, stereo_kitti,
 stereo_kitti_long and the headline last; ``--repeat N`` runs each of them
-N times in a row, one line a run. It writes no file. ``--device``
+N times in a row, one line a run; ``--max-frames N`` cuts each
+configuration longer than N frames to its first N (a prefix of the same
+path; the line's ``frames`` says how many ran). It writes no file. ``--device``
 defaults to cuda and exits nonzero without a card: there is no CPU
 fallback (``--device cpu`` runs on the CPU when asked).
 
@@ -262,6 +264,16 @@ def run_named(name, device, **cut):
     return run_config(name, *load(name, **cut), device=device)
 
 
+def max_frames_cut(name, max_frames) -> dict:
+    """The `load` cut of --max-frames: n_frames lowered to max_frames
+    where the configuration is longer, else nothing."""
+    if max_frames is None or CONFIGS[name]["n_frames"] <= max_frames:
+        return {}
+    if max_frames <= CONFIGS[name]["warmup"]:
+        raise ValueError(f"--max-frames {max_frames} leaves {name} no timed frame")
+    return dict(n_frames=max_frames)
+
+
 def main(argv=None):
     from c_orb_slam_tpu_torch.examples.common import add_device_arg, pick_device
 
@@ -269,14 +281,17 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true", help="run every configuration")
     ap.add_argument("--config", default=None, choices=list(CONFIGS))
     ap.add_argument("--repeat", type=int, default=1, help="runs of each configuration")
+    ap.add_argument("--max-frames", type=int, default=None,
+                    help="cut each configuration to at most its first N frames")
     add_device_arg(ap)
     args = ap.parse_args(argv)
     device = pick_device(args.device)
 
     names = (args.config,) if args.config else ALL if args.all else (HEADLINE,)
     for name in names:
+        cut = max_frames_cut(name, args.max_frames)
         for _ in range(args.repeat):
-            rec = run_named(name, device)
+            rec = run_named(name, device, **cut)
             if name == HEADLINE and not args.config:
                 rec["metric"] = "tracked_frames_per_sec_1chip"  # bench.py's headline name
             print(json.dumps(rec), flush=True)

@@ -15,6 +15,10 @@ Usage:
   python3 -m c_orb_slam_tpu_torch.tools.bench_ab --ref-b HEAD~1 \\
       --cmd "python3 -m c_orb_slam_tpu_torch.tools.bench --config stereo_kitti" --rounds 3
 
+  # The same against an unpacked commit (git archive PARENT | tar -x -C DIR):
+  python3 -m c_orb_slam_tpu_torch.tools.bench_ab --dir-b DIR \\
+      --cmd "python3 -m c_orb_slam_tpu_torch.tools.bench --config mono_tum30" --rounds 3
+
   # Two commands on the same tree (an environment or flag toggle), or one
   # command in both arms (the noise):
   python3 -m c_orb_slam_tpu_torch.tools.bench_ab \\
@@ -107,17 +111,21 @@ def main(argv=None):
     ap.add_argument("--cmd-b", default=None, help="bench command of arm B (default: --cmd)")
     ap.add_argument("--ref-b", default=None,
                     help="git ref for arm B; it runs from a detached worktree")
+    ap.add_argument("--dir-b", default=None,
+                    help="directory arm B runs from instead (an unpacked other commit, "
+                         "where there is no .git)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--label-a", default="A(worktree)")
     ap.add_argument("--label-b", default=None)
     args = ap.parse_args(argv)
 
     cmd_b = args.cmd_b or args.cmd
-    label_b = args.label_b or (f"B({args.ref_b})" if args.ref_b else "B(cmd)")
+    label_b = args.label_b or (f"B({args.ref_b or args.dir_b})" if args.ref_b or args.dir_b
+                               else "B(cmd)")
     wt = make_worktree(args.ref_b) if args.ref_b else None
     try:
-        summary = compare(args.cmd, cmd_b, args.rounds, REPO, wt or REPO,
-                          (args.label_a, label_b))
+        summary = compare(args.cmd, cmd_b, args.rounds, REPO,
+                          wt or os.path.abspath(args.dir_b or REPO), (args.label_a, label_b))
     finally:
         if wt:
             drop_worktree(wt)

@@ -29,6 +29,9 @@ It prints one JSON line a program: the card and its power limit,
 - ``kernel_ms``: the kernels' own time in one call (torch.profiler);
 - ``launches`` and ``copies``: CUDA kernels, and memcpy and memset
   records, in one call (torch.profiler);
+- ``profile_sessions``: the torch.profiler sessions that call took: a
+  session can end with no CUDA record at all (CUPTI's buffers lost), and
+  then the call runs again in a new one, up to PROFILE_SESSIONS;
 - ``launch_floor_ms``: launches x ``empty_launch_ms``, an empty kernel
   launched through window_top2's ctypes route and timed back to back in
   the same run (chip_smoke phase 1's ``empty_launch_ms``), and
@@ -38,10 +41,10 @@ It prints one JSON line a program: the card and its power limit,
   ``fetch_ms``: the median host time of the dispatch, of the wait for its
   device work, and of its readback.
 
-A run on the card that reads no CUDA event or records no kernel for a
-program fails. With ``--device cpu`` only host_ms (and the mapper's
-split) is measured; every device field is null. ``--device`` defaults
-to cuda and exits nonzero without a card.
+A run on the card that reads no CUDA event, or records no kernel for a
+program in any of its sessions, fails. With ``--device cpu`` only
+host_ms (and the mapper's split) is measured; every device field is
+null. ``--device`` defaults to cuda and exits nonzero without a card.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from typing import Callable, NamedTuple
 REPEATS = 5
 RUN_S = 0.05
 MAPPER_TRIALS = 5
+PROFILE_SESSIONS = 3
 
 
 class Program(NamedTuple):
@@ -269,19 +273,25 @@ def measure(fn, device) -> dict:
     host_run(1)  # first-call costs
     n = max(1, min(50, int(RUN_S * 1000 / host_run(1))))
     out = dict(host_ms=round(statistics.median(host_run(n) for _ in range(REPEATS)), 4),
-               device_ms=None, kernel_ms=None, launches=None, copies=None)
+               device_ms=None, kernel_ms=None, launches=None, copies=None,
+               profile_sessions=None)
     if device.type != "cuda":
         return out
     out["device_ms"] = round(statistics.median(per_call_ms(fn, n, device)
                                                for _ in range(REPEATS)), 4)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize(device)
-    kernels, copies = device_records(prof)
-    if not kernels:
-        raise RuntimeError("the profiler recorded no CUDA kernel in a call")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(device)
+        kernels, copies = device_records(prof)
+        if kernels:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no CUDA kernel in a call, "
+                           f"in each of {PROFILE_SESSIONS} sessions")
     out.update(kernel_ms=round(sum(e - s for _, s, e in kernels) / 1000, 4),
-               launches=len(kernels), copies=copies)
+               launches=len(kernels), copies=copies, profile_sessions=session)
     return out
 
 

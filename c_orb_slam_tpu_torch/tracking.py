@@ -302,14 +302,9 @@ class Tracking:
         # tools/profile_stages.py from the real code path, so the profile
         # cannot go stale against a copy of it.
         self.stage_ms: dict = {}
-        # In-flight frames (frame, dispatch record, timestamp), applied
-        # `pipeline_depth` frames later (see track()).
+        # In-flight frames (frame, dispatch record, timestamp), applied at
+        # the next track() (see there).
         self._pending = collections.deque()
-        # 0 = auto: 3 on a CUDA device (readback latency to hide), lock-step
-        # 1 on the CPU (tracking.py:484-486 of the JAX package).
-        self.pipeline_depth = cfg.tracking.pipeline_depth or (
-            3 if self.device.type == "cuda" else 1
-        )
         # Device pose chain (chain_pose_t, pose_{t-1}) of the last dispatch.
         self._chain = None
         self.current_timestamp = 0.0
@@ -335,25 +330,20 @@ class Tracking:
     # ------------------------------------------------------------------
     def track(self, f: frame_mod.FrameData) -> Optional[np.ndarray]:
         """Process one frame; returns the most recent resolved Tcw (3,4)
-        numpy pose, or None if lost. Steady-state frames are pipelined
-        `pipeline_depth` deep (the fused device step of frame t is applied
-        up to `depth` frames later); see the JAX package's Tracking.track
-        for the depth policy, which this follows."""
-        depth = (
-            self.pipeline_depth
-            if self.current_inliers >= 2 * self.cfg.tracking.min_inliers_local_map
-            else 1
-        )
-        # Rotation-adaptive depth: under fast yaw the stale pipelined
-        # bookkeeping loses the view; fall back to lock-step.
-        if depth > 1 and self.velocity is not None:
-            cos_r = 0.5 * (np.trace(self.velocity[:, :3]) - 1.0)
-            if cos_r < 0.99995:  # rotation > ~0.57 deg/frame
-                depth = 1
-        while self._pending and (
-            len(self._pending) >= depth or self._pending[0][1][0].done()
-        ):
-            self._apply_oldest()
+        numpy pose, or None if lost. Steady-state frames are pipelined one
+        frame deep: the fused device step of frame t is applied at the
+        start of frame t+1, on every device."""
+        # One readback schedule on every device, the CPU's (where done() is
+        # always true): each in-flight frame is applied here, at the first
+        # track() after its dispatch, waiting for its readback with
+        # Fetch.result(). The JAX package polls done() and bounds the queue
+        # by its pipeline depth, to hide a remote chip's latency; on the
+        # card the device is done when the host ends its enqueue, so
+        # waiting costs ~nothing, and a poll lets the lag of the host
+        # bookkeeping follow the host's load (PERF.md §6). The queue never
+        # holds more than the last track()'s frame, so the port has no
+        # depth (cfg.tracking.pipeline_depth is read by no code here).
+        self.flush_pending()
         self.frame_id += 1
 
         if self.state == TrackState.NOT_INITIALIZED:
@@ -408,6 +398,11 @@ class Tracking:
                 ok, pose, cur_mp = self._track_local_map(f, pose, cur_mp)
         self._finalize(f, ok, pose, cur_mp)
         self.current_timestamp = saved_stamp
+
+    def apply_pending(self):
+        """Apply the oldest in-flight frame, if any (the JAX package's
+        Tracking.apply_pending)."""
+        self._apply_oldest()
 
     def flush_pending(self):
         """Drain every in-flight frame."""

@@ -3,8 +3,11 @@
 Counterpart of c_orb_slam_tpu/utils/host.py. ``fetch`` copies tensors to
 numpy (one ``.cpu()`` each: the first waits for the stream, the rest are
 plain copies). ``fetch_async`` starts non-blocking copies into pinned host
-tensors and records a CUDA event; its future is done when the event is,
-so a pipelined stage reads its results a frame later without a stall.
+tensors and records a CUDA event; its future is done when the event is.
+Every pipelined stage (tracking, mapping, loop closing) reads its future
+with ``result()`` at a fixed point of its schedule, never when ``done()``
+first says so: the device is done when the host ends its enqueue, so the
+wait costs almost nothing.
 """
 
 from __future__ import annotations

@@ -27,14 +27,14 @@ launched during that phase's run:
 - phase 3: System.track_monocular on bench.py's mono_tum30 (70 frames, 30
   Hz, 1000 features, 8 levels; the entry of the port's bench CONFIGS)
   with loop closing off, which bench.py leaves on; ATE after scale
-  alignment;
+  alignment; run twice in this process, and the two trajectories (stamps
+  and poses as float32 bytes) must hash equal;
 - phase 4: System.track_stereo on bench.py's stereo_kitti (1241x376, 2000
   features, 8 levels, baseline 0.2 m; the port's CONFIGS entry), cut from
   120 to 30 frames and with loop closing off; ATE at absolute scale;
 - phase 5: relocalization: the 40-frame RGB-D sequence of
-  tests/test_torch_reloc.py with frames 28-29 blank, in lock-step
-  (pipeline depth 1), must relocalize at frame 30 or later and end OK;
-  the same run at the default pipeline depth must end OK.
+  tests/test_torch_reloc.py with frames 28-29 blank, must relocalize at
+  frame 30 or later and end OK.
 Phase 6 runs the two-view and PnP RANSAC solvers on CUDA and on the CPU
 with the same inputs and injected first-round draws, and holds the CUDA
 results (cuSOLVER eigh/svd) to the CPU ones; then the loop path's solvers
@@ -44,7 +44,12 @@ dense solves on singular input: a local BA at the full bucket whose
 float32 dense-Schur Cholesky fails must reject its LM step on both
 devices (state unchanged, damping x 4), and every LU call of the port on
 a singular input must give the same non-finite entries on CUDA as on the
-CPU, and as the JAX package (recorded in SINGULAR_JAX).
+CPU, and as the JAX package (recorded in SINGULAR_JAX); last, three
+solvers run 3 times each on one seeded input must give the same bits every
+time: ba.bundle_adjust at the full local-BA bucket (64 cameras x 8192
+points x 16384 observations), a pose_graph.gn_step on phase 10a's 512
+vertices x 7,396 edges, and BoW aggregation and scoring over a filled
+database.
 
 Phases 7 and 8 close a loop end to end with System(enable_loop_closing=
 True) and the shipped 10^5-word vocabulary, on the outward-facing orbit
@@ -87,7 +92,7 @@ shards on the one card, as the JAX tests' 8 virtual CPU devices):
   tests' tolerances; the points seen from two cameras or more, the inlier
   flags in slab order against the solve of the partitioned problem, and
   the mean inlier chi2, at five times the gaps measured on the card) and timed
-  beside it (CUDA events, median of 3), with its collectives per
+  beside it (CUDA events, one call after the checked one), with its collectives per
   iteration;
 - 10b: two gloo ranks on cuda:0 (2 shards each; gloo's CUDA tensors cross
   through host memory) run the global BA and the essential graph, then one
@@ -96,7 +101,7 @@ shards on the one card, as the JAX tests' 8 virtual CPU devices):
   the single-device solves on every output (its own blocks of the points
   and the inlier flags);
 - 10c: phase 7's stereo orbit with System(cfg, "cuda", mesh=4 shards),
-  run on for 40 frames past phase 7's 240 along the same orbit: phase 7's
+  run on for 20 frames past phase 7's 240 along the same orbit: phase 7's
   gates, the essential graph through dpose_graph, the global BA as a
   _ShardedGbaJob (both one iteration a frame), at least one full-bucket
   local BA through dba; it prints the local BAs by route, the frame on
@@ -104,26 +109,29 @@ shards on the one card, as the JAX tests' 8 virtual CPU devices):
   closer advanced on it.
 
 Phase 11 runs the port's benchmark entry point, `python3 -m
-c_orb_slam_tpu_torch.tools.bench --all`, in a child process: bench.py's
-four configurations (mono_fast10, stereo_kitti, stereo_kitti_long, then
-the headline mono_tum30), whole and as bench.py runs them, with loop
-closing on. It prints the four records and fails unless the child exits 0
-and each record holds its bench.py gate, ran with loop closing on on this
-card with its power limit recorded, and launched window_top2; those
-launches count toward the kernel's.
+c_orb_slam_tpu_torch.tools.bench --all --max-frames 90`, in a child
+process: bench.py's four configurations (mono_fast10, stereo_kitti,
+stereo_kitti_long, then the headline mono_tum30) as bench.py runs them,
+with loop closing on; stereo_kitti (120 frames) and stereo_kitti_long
+(300) are cut to their first 90, the monocular two run whole. It prints the four records and fails
+unless the child exits 0 and each record holds its bench.py gate, ran its
+frames with loop closing on on this card with its power limit recorded,
+and launched window_top2; those launches count toward the kernel's.
 
 Phase 12 runs the port's profiling entry points in child processes:
 `python3 -m c_orb_slam_tpu_torch.tools.profile_stages --config mono_tum30
---trace 5` (the counterpart of tools/profile_stages.py --tum30 and
+--frames 40 --trace 5` (the configuration cut from 70 to 40 frames; the
+counterpart of tools/profile_stages.py --tum30 and
 tools/profile_track_fine.py: stage and tracking sub-stage ms a frame, and a
 torch.profiler window of 5 frames: the device's busy and idle share,
 launches a frame, the device operations with the most time), then
-`python3 -m c_orb_slam_tpu_torch.tools.profile_kernels` at mono_tum30 and
-at stereo_kitti (the counterpart of tools/profile_kernels.py,
+`python3 -m c_orb_slam_tpu_torch.tools.profile_kernels --config NAME` for
+mono_tum30 and for stereo_kitti (the counterpart of tools/profile_kernels.py,
 profile_device_kernels.py, profile_mapping.py and profile_latency.py: each
 hot program's host ms, device ms, kernel ms, launches and launch floor,
-and the mapper's three dispatches split into enqueue, ready and fetch). It
-prints their records and fails unless each child exits 0 and every record
+and the mapper's three dispatches split into enqueue, ready and fetch; a
+profiler session that recorded no CUDA kernel runs again, up to 3 in all,
+and is reported). It prints their records and fails unless each child exits 0 and every record
 has its fields, names this card with its power limit, and holds device
 fields read on the card (nonzero, the idle share within [0, 1]), and the
 tracking sub-stages sum to no more than the tracking stage.
@@ -419,9 +427,10 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     n = len(frames)
     steady = host_ms[warmup:]
     scale = "scale-aligned" if with_scale else "absolute scale"
+    sha = traj_io.sha256(poses, stamps)
     print(f"{label} frames tracked {len(poses)}/{n}, ATE {ate:.5f} m ({scale}), "
           f"local BA solves {sysm.local_mapping.n_local_ba}, window_top2 launches {launches}, "
-          f"final state {sysm.tracking_state()}", flush=True)
+          f"final state {sysm.tracking_state()}, trajectory sha256 {sha}", flush=True)
     print(f"{label} window_top2 launches by shape B x Q x T over {n} frames: {json.dumps(shapes)}",
           flush=True)
     print(f"{label} ms/frame after {warmup} warm-up frames: mean {wall_ms / len(steady):.3f} "
@@ -431,7 +440,7 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     print(f"{label} host ms per stage over the steady frames: {json.dumps(stages)}", flush=True)
     if launches <= 0:
         raise AssertionError(f"{label}: window_top2 never launched on the main path")
-    return dict(n_ok=len(poses), ate=ate, launches=launches, ids=ids, host_ms=host_ms)
+    return dict(n_ok=len(poses), ate=ate, launches=launches, ids=ids, host_ms=host_ms, sha=sha)
 
 
 def _gates(label, run, n, ate_gate):
@@ -477,25 +486,36 @@ def phase2(dev):
 
 def phase3(dev):
     """System.track_monocular at bench.py's mono_tum30, whole, with loop
-    closing off (phase 11 runs it with loop closing on)."""
+    closing off (phase 11 runs it with loop closing on), twice in this
+    process: the two trajectories (stamps and poses as float32 bytes) must
+    hash equal."""
     from c_orb_slam_tpu_torch.system import System
     from c_orb_slam_tpu_torch.tools import bench
     from c_orb_slam_tpu_torch.tracking import TrackState
 
     c, cfg, frames, traj = bench.load("mono_tum30")
     dt = c["dt_frame"]
-    sysm = System(cfg, dev, enable_loop_closing=False)
-    sysm.warmup()
-    inits = []
-    _timed(sysm.tracker, "_monocular_initialization", inits)
-    run = drive("phase3", sysm, frames, lambda s, i, f: s.track_monocular(f, i * dt),
-                traj, 1.0 / dt, with_scale=True, warmup=c["warmup"])
-    print(f"phase3 two-view initialization calls (host ms incl. sync): "
-          f"{[round(ms, 3) for ms, _ in inits]}; the last one initialized the map", flush=True)
-    _gates("phase3", run, c["n_frames"], c["ate_gate"])
-    if sysm.tracking_state() != TrackState.OK:
-        raise AssertionError("phase3: tracking not OK at the end")
-    return run["launches"]
+    launches, shas = 0, []
+    for k in (1, 2):
+        label = f"phase3 run {k}"
+        sysm = System(cfg, dev, enable_loop_closing=False)
+        sysm.warmup()
+        inits = []
+        _timed(sysm.tracker, "_monocular_initialization", inits)
+        run = drive(label, sysm, frames, lambda s, i, f: s.track_monocular(f, i * dt),
+                    traj, 1.0 / dt, with_scale=True, warmup=c["warmup"])
+        print(f"{label} two-view initialization calls (host ms incl. sync): "
+              f"{[round(ms, 3) for ms, _ in inits]}; the last one initialized the map",
+              flush=True)
+        _gates(label, run, c["n_frames"], c["ate_gate"])
+        if sysm.tracking_state() != TrackState.OK:
+            raise AssertionError(f"{label}: tracking not OK at the end")
+        launches += run["launches"]
+        shas.append(run["sha"])
+    print(f"phase3 trajectory sha256 of the two runs: {shas[0]} {shas[1]}", flush=True)
+    if shas[0] != shas[1]:
+        raise AssertionError("phase3: two runs of one configuration gave different trajectories")
+    return launches
 
 
 def phase4(dev):
@@ -517,9 +537,8 @@ def phase4(dev):
 
 def phase5(dev):
     """Relocalization after two blank frames (tests/test_torch_reloc.py's
-    40-frame RGB-D sequence, its configuration: 800 features, 4 levels)."""
-    import dataclasses
-
+    40-frame RGB-D sequence, its configuration: 800 features, 4 levels). The
+    run must end OK, relocalize at frame 30 or later and hold the gates."""
     import numpy as np
     from c_orb_slam_tpu_torch import config as tcfg
     from c_orb_slam_tpu_torch.system import System
@@ -529,7 +548,7 @@ def phase5(dev):
     n, blank = 40, (28, 29)
     cam = tcfg.CameraConfig(fx=500, fy=500, cx=320, cy=240, width=640, height=480, fps=10,
                             bf=100.0)
-    base = tcfg.SlamConfig(
+    cfg = tcfg.SlamConfig(
         sensor=tcfg.Sensor.RGBD, camera=cam, orb=tcfg.OrbConfig(n_features=800, n_levels=4),
         tracking=tcfg.TrackingConfig(min_stereo_init_points=60, velocity_rotation_fraction=0.5,
                                      max_frames_between_kf=10),
@@ -541,27 +560,21 @@ def phase5(dev):
     frames = [(zero, zero) if i in blank else
               (syn.render_scene(xw, inten, size, T, K4), syn.render_depth(xw, size, T, K4))
               for i, T in enumerate(traj)]
-    launches = 0
-    for depth in (1, 0):  # lock-step, then the default (3 on a GPU)
-        cfg = dataclasses.replace(
-            base, tracking=dataclasses.replace(base.tracking, pipeline_depth=depth))
-        sysm = System(cfg, dev, enable_loop_closing=False)
-        relocs = []
-        _timed(sysm.tracker, "_relocalize", relocs)
-        label = f"phase5 depth {sysm.tracker.pipeline_depth}"
-        run = drive(label, sysm, frames, lambda s, i, f: s.track_rgbd(f[0], f[1], i / 10.0),
-                    traj, 10.0, with_scale=False)
-        launches += run["launches"]
-        reloc_id = sysm.tracker.last_reloc_frame_id
-        print(f"{label}: last_reloc_frame_id {reloc_id}, relocalize calls (host ms incl. sync, "
-              f"ok) {[(round(ms, 3), bool(out[0])) for ms, out in relocs]}", flush=True)
-        if sysm.tracking_state() != TrackState.OK:
-            raise AssertionError(f"{label}: tracking not OK at the end")
-        if depth == 1:
-            if reloc_id < 30:
-                raise AssertionError(f"{label}: no relocalization at frame 30 or later")
-            _gates(label, run, n, 0.05)
-    return launches
+    sysm = System(cfg, dev, enable_loop_closing=False)
+    relocs = []
+    _timed(sysm.tracker, "_relocalize", relocs)
+    label = "phase5"
+    run = drive(label, sysm, frames, lambda s, i, f: s.track_rgbd(f[0], f[1], i / 10.0),
+                traj, 10.0, with_scale=False)
+    reloc_id = sysm.tracker.last_reloc_frame_id
+    print(f"{label}: last_reloc_frame_id {reloc_id}, relocalize calls (host ms incl. sync, "
+          f"ok) {[(round(ms, 3), bool(out[0])) for ms, out in relocs]}", flush=True)
+    if sysm.tracking_state() != TrackState.OK:
+        raise AssertionError(f"{label}: tracking not OK at the end")
+    if reloc_id < 30:
+        raise AssertionError(f"{label}: no relocalization at frame 30 or later")
+    _gates(label, run, n, 0.05)
+    return run["launches"]
 
 
 def _angle(R):
@@ -913,6 +926,70 @@ def phase6_loop(dev):
     same_err = abs(float(lg[3]) - float(lc_[3])) < 0.01 * float(lc_[3])
     if not (dT < bT and dx < bx and same_err and float(lg[3]) < float(lg[4])):
         raise AssertionError("ba.lm_step (PCG): CUDA differs from the CPU or did not descend")
+
+
+def _sha(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase6_repeat(dev, runs=3):
+    """Three solvers of the main path, each `runs` times on one seeded input
+    on the card, must give the same bits every time (their sums are ordered
+    segment sums, ops/segment.py, where index_add_ adds with float
+    atomics): ba.bundle_adjust at the full local-BA bucket (dense Schur, the
+    live iteration counts), one pose_graph.gn_step on phase 10a's essential
+    graph, and the aggregation and scoring of a query against a filled
+    BoW database on the shipped vocabulary."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch import config as tcfg
+    from c_orb_slam_tpu_torch.bow import database, vocab
+    from c_orb_slam_tpu_torch.optim import ba, pose_graph
+
+    opt = tcfg.OptimizerConfig()
+    p_l = ba_problem(*DBA_SIZE, dev, seed=1)
+    p_p = pg_problem(PG_VERTICES, dev)
+    voc = vocab.load(vocab.builtin_vocabulary_path()).to(dev)
+    rng = np.random.default_rng(6)
+    n_kf, n_desc = 64, 1000
+    leaves = voc.levels[-1].cpu().numpy()
+
+    def frame_bow():
+        d = leaves[rng.integers(0, 2000, n_desc)].copy()  # frames share words
+        d[:, 0] ^= rng.integers(0, 2, n_desc).astype(np.int32) << 3
+        return vocab.transform(voc, torch.from_numpy(d).to(dev),
+                               torch.ones(n_desc, dtype=torch.bool, device=dev))
+
+    db = database.KeyFrameDatabase(voc, n_kf, n_desc)
+    for k in range(n_kf):
+        fb = frame_bow()
+        db.add_dev(k, *database.aggregate_bow_dev(fb.word, fb.weight, n_desc))
+    q = frame_bow()
+
+    def bow():
+        w, a = database.aggregate_bow_dev(q.word, q.weight, n_desc)
+        return (w, a, *db.scores_dev(w, a, exclude=()))
+
+    solvers = (
+        (f"ba.bundle_adjust ({DBA_SIZE[0]} cameras x {DBA_SIZE[3]} point slots x "
+         f"{DBA_SIZE[4]} observation slots, dense Schur)",
+         lambda: ba.bundle_adjust(p_l, iters_first=opt.local_ba_its_first,
+                                  iters_second=opt.local_ba_its_second, schur="dense")),
+        (f"pose_graph.gn_step ({PG_VERTICES} vertices x {p_p.edge_i.shape[0]} edges)",
+         lambda: [pose_graph.gn_step(p_p, p_p.vertices, pcg_iters=opt.pcg_iters)]),
+        (f"BoW aggregation and score against {n_kf} keyframes of {n_desc} descriptors", bow),
+    )
+    for name, fn in solvers:
+        shas = [_sha(fn()) for _ in range(runs)]
+        print(f"phase6 repeat {name}: {runs} runs, sha256 {' '.join(s[:16] for s in shas)}",
+              flush=True)
+        if len(set(shas)) != 1:
+            raise AssertionError(f"phase6: {name} gave other bits on another run")
 
 
 def zero_pivot(batch, n, seed=0):
@@ -1847,7 +1924,7 @@ def _check_gaps(label, gaps, tols):
 def phase10a(dev):
     """The three sharded solvers on a mesh of SHARDS shards on one card,
     each held against its single-device solve on the card (every output)
-    and timed (CUDA events, median of 3) beside it; collectives per
+    and timed (CUDA events, one call after the checked one) beside it; collectives per
     iteration. Returns the single-device results and the points seen
     twice, for phase 10b."""
     import torch
@@ -1862,13 +1939,13 @@ def phase10a(dev):
         torch.cuda.synchronize()
         counts = {k: [v[0] / iters, v[1] / iters] for k, v in mesh.counts.items()}
         gaps = _gaps(got, ref, seen)
-        single_ms = _event_ms(single, 3)
-        sharded_ms = _event_ms(lambda: sharded(mesh), 3)
+        single_ms = _event_ms(single, 1)
+        sharded_ms = _event_ms(lambda: sharded(mesh), 1)
         print(f"phase10a {name} ({what}) on {SHARDS} shards of {dev}: sharded against single "
               f"device (gap, tolerance) {json.dumps({k: [v, tols[k]] for k, v in gaps.items()})} "
               f"(max |difference|; points seen from two cameras or more; differing inlier "
               f"flags; relative gap of the mean inlier chi2); sharded {sharded_ms:.3f} ms, "
-              f"single device {single_ms:.3f} ms (CUDA events, median of 3); collectives per "
+              f"single device {single_ms:.3f} ms (CUDA events, one call); collectives per "
               f"{unit} (calls, elements): {json.dumps(counts)}", flush=True)
         _check_gaps(f"phase10a {name}", gaps, tols)
         singles[name] = (ref, seen)
@@ -1969,32 +2046,39 @@ def phase10b(dev, singles):
 
 def phase10c(dev):
     """Phase 7's stereo orbit with System(..., mesh=Mesh([dev] * SHARDS)):
-    phase 7's gates, and the sharded routes taken. 280 frames, 40 past
+    phase 7's gates, and the sharded routes taken. 260 frames, 20 past
     phase 7's end along the same orbit: the essential graph (20 GN
     iterations) and the global BA (20 LM iterations) advance one
     iteration a frame after the loop event near frame 205, so the global
-    BA's apply lands during the run, beside tracking, not in the shutdown
-    drain."""
+    BA's apply (at frame 251 on the card) lands during the run, beside
+    tracking, not in the shutdown drain."""
     from c_orb_slam_tpu_torch.parallel.mesh import Mesh
 
-    return loop_run("phase10c", dev, "stereo", mesh=Mesh([dev] * SHARDS), n=280)
+    return loop_run("phase10c", dev, "stereo", mesh=Mesh([dev] * SHARDS), n=260)
+
+
+# Phase 11's cut: the stereo configurations to their first 90 frames (75
+# timed; stereo_kitti has 120, stereo_kitti_long 300); the monocular ones,
+# 40 and 70 frames, run whole.
+BENCH_MAX_FRAMES = 90
 
 
 def phase11(dev):
     """The port's benchmark entry point, `python3 -m
-    c_orb_slam_tpu_torch.tools.bench --all`, in a child process on the
-    card: bench.py's four configurations, as bench.py runs them (loop
-    closing on, the shipped vocabulary). Prints its four records; fails
-    unless the child exits 0 and every record holds its bench.py gate (no
-    error, vs_baseline > 0), ran with loop closing on on this card, carries
-    its power limit, and launched window_top2. Returns the launches (over
-    each configuration's timed window)."""
+    c_orb_slam_tpu_torch.tools.bench --all --max-frames 90`, in a child
+    process on the card: bench.py's four configurations, as bench.py runs
+    them (loop closing on, the shipped vocabulary), the two stereo ones
+    cut to 90 frames. Prints its four records; fails unless the child exits 0
+    and every record holds its bench.py gate (no error, vs_baseline > 0),
+    ran its frames with loop closing on on this card, carries its power
+    limit, and launched window_top2. Returns the launches (over each
+    configuration's timed window)."""
     import torch
     from c_orb_slam_tpu_torch.tools import bench
 
     r = subprocess.run([sys.executable, "-m", "c_orb_slam_tpu_torch.tools.bench", "--all",
-                        "--device", str(dev)], cwd=HERE, capture_output=True, text=True,
-                       timeout=900)
+                        "--max-frames", str(BENCH_MAX_FRAMES), "--device", str(dev)], cwd=HERE,
+                       capture_output=True, text=True, timeout=900)
     recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
     for rec in recs:
         print("phase11 bench", json.dumps(rec), flush=True)
@@ -2011,6 +2095,8 @@ def phase11(dev):
         if not rec["loop_closing"] or rec["device"] != kind or not rec["power_limit_w"]:
             raise AssertionError(f"phase11 {name}: not a loop-closing run on {kind} with its "
                                  f"power limit: {rec}")
+        if rec["frames"] != min(BENCH_MAX_FRAMES, bench.CONFIGS[name]["n_frames"]):
+            raise AssertionError(f"phase11 {name}: ran {rec['frames']} frames")
         if rec["window_top2_launches"] <= 0:
             raise AssertionError(f"phase11 {name}: window_top2 never launched")
         if rec["loops_closed"]:
@@ -2047,7 +2133,7 @@ def _positive(label, rec, keys):
 
 def phase12(dev):
     """The port's profiling entry points on the card, each in a child
-    process: profile_stages at mono_tum30 with a 5-frame trace window,
+    process: profile_stages at mono_tum30, cut to 40 frames, with a 5-frame trace window,
     profile_kernels at mono_tum30 and at stereo_kitti. Prints their records
     and fails unless every device field was read on the card."""
     import torch
@@ -2055,7 +2141,7 @@ def phase12(dev):
 
     kind = torch.cuda.get_device_name(dev)
     [rec] = _phase12_child(dev, kind, ["c_orb_slam_tpu_torch.tools.profile_stages", "--config",
-                                       "mono_tum30", "--trace", "5"], 400)
+                                       "mono_tum30", "--frames", "40", "--trace", "5"], 400)
     _positive("profile_stages", rec, ("fps", "ms_per_frame", "frame_ms_median"))
     sub = rec["track_substages"]
     if set(sub) != {*profile_stages.SUBSTAGES, "tracking_other"}:
@@ -2067,18 +2153,23 @@ def phase12(dev):
               ("ms_per_frame", "device_busy_share", "launches_per_frame"))
     if not 0.0 <= trace["device_idle_share"] <= 1.0 or not trace["top_ops"]:
         raise AssertionError(f"phase12: trace window off the card: {trace}")
-    for config in ("mono_tum30", "stereo_kitti"):
+    for config, build in (("mono_tum30", "frame.build_mono"),
+                          ("stereo_kitti", "frame.build_stereo")):
         recs = _phase12_child(dev, kind, ["c_orb_slam_tpu_torch.tools.profile_kernels",
                                           "--config", config], 400)
         names = {r["program"] for r in recs}
         for want in ("tracking._full_track_step", "tracking._optimize", "ba.bundle_adjust",
-                     "match.search_by_projection", "LocalMapping._ba_dispatch"):
+                     "match.search_by_projection", "LocalMapping._ba_dispatch", build):
             if want not in names:
                 raise AssertionError(f"phase12 {config}: no record of {want}")
         for r in recs:
             _positive(f"{config} {r['program']}", r,
                       ("host_ms", "device_ms", "kernel_ms", "launches", "launch_floor_ms",
-                       "op_floor_ms", "empty_launch_ms"))
+                       "op_floor_ms", "empty_launch_ms", "profile_sessions"))
+        retried = [r["program"] for r in recs if r["profile_sessions"] > 1]
+        if retried:
+            print(f"phase12 {config}: a profiler session recorded no CUDA kernel and was "
+                  f"run again for {retried}", flush=True)
 
 
 def main() -> int:
@@ -2116,6 +2207,7 @@ def main() -> int:
             if num == 6:
                 phase6_loop(dev)
                 phase6_singular(dev)
+                phase6_repeat(dev)
             print(f"phase{num} took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         singles = phase10a(dev)

@@ -127,6 +127,22 @@ def test_cli_prints_a_line_a_run(argv, names, metric, monkeypatch, capsys):
         assert lines[0]["metric"] == "tracked_frames_per_sec_1chip_mono_fast10"
 
 
+def test_cli_max_frames_cuts_only_longer_configurations(monkeypatch, capsys):
+    ran = []
+
+    def fake(name, device, **cut):
+        ran.append((name, cut))
+        return {"metric": f"tracked_frames_per_sec_1chip_{name}"}
+
+    monkeypatch.setattr(tbench, "run_named", fake)
+    tbench.main(["--all", "--max-frames", "120", "--device", "cpu"])
+    assert ran == [("mono_fast10", {}), ("stereo_kitti", {}),
+                   ("stereo_kitti_long", {"n_frames": 120}), ("mono_tum30", {})]
+    assert len(capsys.readouterr().out.strip().splitlines()) == 4
+    with pytest.raises(ValueError, match="no timed frame"):
+        tbench.max_frames_cut("stereo_kitti_long", 15)
+
+
 def _printer(value, ate):
     """A command that prints a log line, an empty record and then a fixed
     bench record."""

@@ -158,10 +158,16 @@ def test_staged_loop_correction_drains_on_the_card(cuda):
     """tests/test_torch_loop_correction.py's tiny stereo system on the
     card: a correction armed by hand runs fuse, essential graph and
     global BA through fetch_async and releases the mapper."""
-    from test_torch_loop_correction import _arm_correction, _tiny_system
+    import types
 
-    sysm = _tiny_system(device=cuda)
-    lc = _arm_correction(sysm)
+    from c_orb_slam_tpu_torch.system import System
+    from test_torch_loop_correction import TORCH, _arm_correction, _tiny_system
+
+    on_card = types.SimpleNamespace(**{**vars(TORCH),
+                                       "system": lambda cfg, **kw: System(cfg, cuda, **kw),
+                                       "tensor": lambda a: TORCH.tensor(a).to(cuda)})
+    sysm = _tiny_system(on_card)
+    lc = _arm_correction(on_card, sysm)
     assert lc.correction_job is not None and sysm.local_mapping.paused
     n = 0
     while not lc.idle():
@@ -173,3 +179,98 @@ def test_staged_loop_correction_drains_on_the_card(cuda):
     sysm.shutdown()
     assert np.isfinite(sysm.map.kf_pose[sysm.map.live_keyframes()]).all()
     assert np.isfinite(sysm.map.pt_xyz[sysm.map.live_points()]).all()
+
+
+def _ba_terms(dev, C=64, P=8192, O=16384, seed=3):
+    """A local-BA bucket's observation ids (every point seen 2 times on
+    average, cameras in random order) and random residuals, Jacobians and
+    weights of that size, as a BAProblem the sums read ids and sizes from."""
+    from c_orb_slam_tpu_torch.optim import ba
+
+    g = torch.Generator().manual_seed(seed)
+    z = lambda *s: torch.zeros(s)  # noqa: E731
+    p = ba.BAProblem(
+        cam_T=z(C, 3, 4), cam_fixed=torch.zeros(C, dtype=torch.bool),
+        cam_valid=torch.ones(C, dtype=torch.bool), points=z(P, 3),
+        point_valid=torch.ones(P, dtype=torch.bool),
+        obs_cam=torch.randint(0, C, (O,), generator=g, dtype=torch.int32),
+        obs_pt=torch.randint(0, P, (O,), generator=g, dtype=torch.int32),
+        obs_uv=z(O, 3), obs_stereo=torch.zeros(O, dtype=torch.bool), obs_inv_sigma2=z(O),
+        obs_valid=torch.ones(O, dtype=torch.bool), K=z(4), bf=torch.tensor(0.0))
+    terms = (torch.randn(O, 3, generator=g), torch.randn(O, 3, 6, generator=g),
+             torch.randn(O, 3, 3, generator=g), torch.rand(O, generator=g))
+    p = ba.sort_by_point(p)
+    return (ba.BAProblem(*(x.to(dev) for x in p)), tuple(t.to(dev) for t in terms))
+
+
+def _same_each_time(fn, n=20):
+    """fn() n times: every output bit-equal to the first run's."""
+    first = [x.cpu() for x in fn()]
+    for _ in range(n - 1):
+        for a, b in zip(first, fn()):
+            assert torch.equal(a, b.cpu())
+    return first
+
+
+def test_ordered_segment_sums_repeat_bitwise(cuda):
+    """ops/segment.segment_sum and the BA sums built on it, 20 times each on
+    the card: the same bits every run (index_add_ adds with float atomics
+    there), and the CPU's sums within float32 rounding."""
+    from c_orb_slam_tpu_torch.ops import segment
+    from c_orb_slam_tpu_torch.optim import ba
+
+    g = torch.Generator().manual_seed(0)
+    for n_rows, n_seg, shape in ((16384, 64, (42,)), (16384, 8192, (12,)), (100000, 1, ()),
+                                 (4000, 100001, ())):
+        ids = torch.randint(0, n_seg, (n_rows,), generator=g)
+        x = torch.randn((n_rows, *shape), generator=g)
+        seg = segment.segments(ids.to(cuda), n_seg)
+        got = _same_each_time(lambda: [segment.segment_sum(x.to(cuda), seg)])[0]
+        want = segment.segment_sum(x, ids, n_seg)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-3)
+    p, terms = _ba_terms(cuda)
+    segs = ba.segs_of(p)
+    sums = _same_each_time(lambda: ba._normal_sums(p, *terms, segs))
+    W = _same_each_time(lambda: [ba._w_blocks(p, *terms[1:], segs)])[0]
+    y = torch.randn(p.points.shape[0], 3, generator=g).to(cuda)
+    x = torch.randn(p.cam_T.shape[0], 6, generator=g).to(cuda)
+    _same_each_time(lambda: [ba._w_times(p, *terms[1:], y, segs),
+                             ba._wt_times(p, *terms[1:], x, segs)])
+    p_cpu, t_cpu = _ba_terms(torch.device("cpu"))
+    for a, b in zip((*sums, W), (*ba._normal_sums(p_cpu, *t_cpu), ba._w_blocks(p_cpu, *t_cpu[1:]))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-3)
+
+
+def test_pose_graph_and_bow_sums_repeat_bitwise(cuda):
+    """A pose-graph gn_step (its gradient, preconditioner and every PCG
+    matvec are ordered sums) on 512 vertices with chain, skip and random
+    edges, and BoW aggregation and scoring, 20 times each on the card: the
+    same bits every run."""
+    from c_orb_slam_tpu_torch.bow import database
+    from c_orb_slam_tpu_torch.geometry import sim3
+    from c_orb_slam_tpu_torch.optim import pose_graph
+
+    g = torch.Generator().manual_seed(1)
+    K = 512
+    gt = sim3.exp(torch.randn(K, 7, generator=g) * 0.3)
+    ei = torch.cat([torch.arange(K - 1), torch.arange(K - 2), torch.randint(0, K, (2000,), generator=g)])
+    ej = torch.cat([torch.arange(1, K), torch.arange(2, K), torch.randint(0, K, (2000,), generator=g)])
+    rel = sim3.compose(gt[ej], sim3.inverse(gt[ei]))
+    E = len(ei)
+    p = pose_graph.PoseGraphProblem(
+        vertices=sim3.compose(sim3.exp(torch.randn(K, 7, generator=g) * 0.05), gt),
+        v_fixed=torch.arange(K) == 0, v_valid=torch.ones(K, dtype=torch.bool),
+        edge_i=ei.to(torch.int32), edge_j=ej.to(torch.int32),
+        edge_Sji=sim3.compose(sim3.exp(torch.randn(E, 7, generator=g) * 0.02), rel),
+        edge_weight=torch.rand(E, generator=g) + 0.5,
+        edge_valid=ei != ej)
+    p = pose_graph.PoseGraphProblem(*(x.to(cuda) for x in p))
+    _same_each_time(lambda: [pose_graph.gn_step(p, p.vertices, pcg_iters=50)])
+    word = torch.randint(-1, 500, (2000,), generator=g).to(cuda)
+    weight = torch.rand(2000, generator=g).to(cuda)
+    q_word, q_weight = _same_each_time(lambda: database.aggregate_bow_dev(word, weight, 2000))
+    kf_word = torch.randint(-1, 500, (64, 300), generator=g).to(cuda)
+    kf_weight = torch.rand(64, 300, generator=g).to(cuda)
+    _same_each_time(lambda: database._score_all(
+        q_word.to(cuda), q_weight.to(cuda), kf_word, kf_weight,
+        torch.ones(64, dtype=torch.bool, device=cuda), 500))

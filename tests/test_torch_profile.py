@@ -132,6 +132,7 @@ def test_profile_kernels_table_is_the_package():
     rec = profile_kernels.measure(progs[1], CPU)
     assert rec["host_ms"] > 0
     assert rec["device_ms"] is rec["kernel_ms"] is rec["launches"] is rec["copies"] is None
+    assert rec["profile_sessions"] is None
     assert profile_kernels.floors(CPU) == dict(empty_launch_ms=None, op_ms=None)
 
 
