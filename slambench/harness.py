@@ -1,0 +1,386 @@
+"""One run of one cell of the benchmark of ``c_orb_slam_tpu_torch``.
+
+``run`` makes the cell's world and camera path from the seed, renders the
+frames on the device, builds ``System(cfg, device)`` with loop closing on
+and the shipped vocabulary, calls ``System.warmup()`` and tracks the
+mix's warm-up frames: that is set-up. Then it runs the window as a closed
+loop, frames handed back to back through the sensor's entry point as an
+offline run over a recorded sequence feeds them, each only while the
+window is open at its hand-in; the window closes on the call that
+resolves the last frame in flight (``Tracking.flush_pending``) and a
+synchronize. The window runs with Python's garbage collector paused and
+one host thread for torch's own CPU ops: the port's host work is one
+thread, and both are noise to its clock. With ``trace`` it then runs one
+second of sensor frames (a keyframe period of ORB-SLAM2's rule) inside
+one ``torch.profiler`` session (a new session, up to ``TRACE_SESSIONS``,
+when one records no CUDA kernel). Last, the plain reference
+(``reference.py``) judges every frame handed in after the warm-up.
+
+What belongs to one configuration, one mix or one per-layer metric lives
+in a file of its own, found by the name in ``BENCHMARK.json``:
+``configs/<config>.json``, ``traffic/<mix>.json`` (naming its generator,
+``traffic/<generator>.py``) and ``layers/<metric>.py``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import gc
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "c_orb_slam_tpu")
+TRACE_S = 1.0
+TRACE_SESSIONS = 3
+
+
+def load_module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def applies(metric: dict, workload: str) -> bool:
+    return "workloads" not in metric or workload in metric["workloads"]
+
+
+def load_spec(workload: str, root: str = ROOT) -> dict:
+    """The cell's entry, configuration, mix, generator and metric readers,
+    found by name under the checkout `root`."""
+    here = os.path.join(root, "slambench")
+    bench = load_json(os.path.join(root, "BENCHMARK.json"))
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if workload not in cells:
+        raise SystemExit(f"no workload {workload!r} in BENCHMARK.json: {sorted(cells)}")
+    cell = cells[workload]
+    configs = {c["name"]: c for c in bench["configs"]}
+    config = load_json(os.path.join(root, configs[cell["config"]]["file"]))
+    mix = load_json(os.path.join(here, "traffic", cell["traffic"] + ".json"))
+    gen = load_module(os.path.join(here, "traffic", mix["generator"] + ".py"),
+                      "slambench_traffic_" + mix["generator"])
+    readers = {m["name"]: load_module(os.path.join(here, "layers", m["name"] + ".py"),
+                                      "slambench_layer_" + m["name"].replace(".", "_"))
+               for m in bench["per_layer"] if applies(m, workload)}
+    return dict(cell=cell, config=config, mix=mix, gen=gen, readers=readers,
+                end_to_end=[m for m in bench["end_to_end"] if applies(m, workload)],
+                per_layer=[m for m in bench["per_layer"] if applies(m, workload)])
+
+
+def forbidden_modules() -> list:
+    """Loaded modules whose top-level name (before the first dot) is JAX's
+    or the JAX package's, compared whole."""
+    return sorted({m.split(".", 1)[0] for m in list(sys.modules)} & set(FORBIDDEN))
+
+
+def trace_frames(rate: float) -> int:
+    """Frames of one profiler session: one second of the sensor's."""
+    return math.ceil(TRACE_S * rate)
+
+
+def frame_budget(mix: dict, rate: float, seconds: float, trace: bool) -> int:
+    """Frames rendered: the warm-up ones, the sensor's frames of a window of
+    `seconds`, and the profiler sessions' frames."""
+    return (mix["warmup_frames"] + math.ceil(seconds * rate)
+            + (trace_frames(rate) * TRACE_SESSIONS if trace else 0))
+
+
+def p90(values) -> float:
+    """Nearest-rank 90th percentile."""
+    v = sorted(values)
+    return v[max(0, math.ceil(0.9 * len(v)) - 1)]
+
+
+def slam_config(config: dict):
+    """The port's SlamConfig of a configuration file, through the port's own
+    reader of ORB-SLAM2 settings files."""
+    from c_orb_slam_tpu_torch.config import Sensor, load_yaml
+
+    text = "%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in config["settings"].items())
+    fd, path = tempfile.mkstemp(suffix=".yaml")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        return load_yaml(path, getattr(Sensor, config["sensor"]))
+    finally:
+        os.remove(path)
+
+
+def card(device) -> dict:
+    """The card's name, clocks and power limit, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(device.index or 0),
+         "--query-gpu=name,clocks.sm,clocks.max.sm,power.limit,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return dict(nvidia_smi=out.stdout.strip(), returncode=out.returncode)
+
+
+class Answers:
+    """The poses the program has resolved, read from the tracker's
+    per-frame log (``Tracking.trajectory``) after each call returns: the
+    pose the call returned for the newest frame it resolved, the others'
+    as the map held them then, each frame's tracked flag, and the time
+    the caller had it."""
+
+    def __init__(self, sysm, rate: float, ok_state: int):
+        self.sysm, self.rate, self.ok = sysm, rate, ok_state
+        self.tracker, self.cursor, self.resets = sysm.tracker, 0, 0
+        self.by_frame: dict = {}
+
+    def collect(self, now: float, returned=None):
+        tr = self.sysm.tracker
+        if tr is not self.tracker:  # System.reset() rebuilt the tracker
+            self.tracker, self.cursor = tr, 0
+            self.resets += 1
+        log, kf_pose = tr.trajectory, self.sysm.map.kf_pose
+        while self.cursor < len(log):
+            _, T_cr, ref, state, stamp = log[self.cursor]
+            self.cursor += 1
+            pose = np.asarray(T_cr, np.float64)
+            if self.cursor == len(log) and returned is not None:
+                pose = np.asarray(returned, np.float64)
+            elif ref >= 0:
+                T_rw = np.asarray(kf_pose[ref], np.float64)
+                pose = np.concatenate([pose[:, :3] @ T_rw[:, :3],
+                                       (pose[:, :3] @ T_rw[:, 3] + pose[:, 3])[:, None]], 1)
+            self.by_frame[int(round(stamp * self.rate))] = (pose, state == self.ok, now)
+
+
+def traced_stages(metrics):
+    """Have every stage of `metrics` open a ``stage:NAME`` profiler range
+    too, so the trace shows which host stage was open at each idle gap."""
+    import torch
+
+    inner = metrics.stage
+
+    @contextlib.contextmanager
+    def stage(name, trace=False):
+        with torch.profiler.record_function("stage:" + name), inner(name):
+            yield
+
+    metrics.stage = stage
+    return functools.partial(setattr, metrics, "stage", inner)
+
+
+def precision() -> dict:
+    """The float32 precision in effect for matmuls and convolutions."""
+    import torch
+
+    return dict(matmul_tf32=bool(torch.backends.cuda.matmul.allow_tf32),
+                cudnn_tf32=bool(torch.backends.cudnn.allow_tf32),
+                float32_matmul_precision=torch.get_float32_matmul_precision())
+
+
+def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
+        t_start: float | None = None, root: str = ROOT, tf32: bool = False) -> dict:
+    """One run (see the module docstring). Returns the result line's
+    fields, the numbers compared and the detail record.
+
+    `tf32` switches on the TF32 path that the port pins off (the control
+    of ``readings.py``); it is set after the port is imported, which pins
+    it, and the detail record keeps the precision in effect."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    spec = load_spec(workload, root)
+    config, mix = spec["config"], spec["mix"]
+    st = config["settings"]
+    rate = float(st["Camera.fps"])
+    stereo = config["sensor"] == "STEREO"
+    n_trace = trace_frames(rate)
+    n_total = frame_budget(mix, rate, seconds, trace)
+    warm = mix["warmup_frames"]
+    world = spec["gen"].generate(seed, mix, n_total, rate)
+
+    import torch
+
+    from slambench import reference, render, trace as tr
+
+    device = torch.device("cuda", 0) if device in (None, "cuda") else torch.device(device)
+    cuda = device.type == "cuda"
+    import c_orb_slam_tpu_torch  # noqa: F401  (pins TF32 off, as every user of the port gets)
+    from c_orb_slam_tpu_torch.system import System
+    from c_orb_slam_tpu_torch.tracking import TrackState
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    if cuda:
+        torch.set_num_threads(1)
+
+    K4 = (st["Camera.fx"], st["Camera.fy"], st["Camera.cx"], st["Camera.cy"])
+    baseline = st["Camera.bf"] / st["Camera.fx"] if stereo else None
+    images = render.render_sequence(world, world["poses"], K4, st["Camera.height"],
+                                    st["Camera.width"], device, baseline)
+    cfg = slam_config(config)
+    sysm = System(cfg, device)
+    sysm.warmup()
+    in_effect = precision()
+
+    if stereo:
+        def track(i):
+            return sysm.track_stereo(images[i, 0], images[i, 1], i / rate)
+    else:
+        def track(i):
+            return sysm.track_monocular(images[i], i / rate)
+
+    answers = Answers(sysm, rate, TrackState.OK)
+    for i in range(warm):
+        answers.collect(time.perf_counter(), track(i))
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    sysm.metrics.reset()
+    sysm.tracker.stage_ms = {}
+    ba0 = sysm.local_mapping.n_local_ba
+
+    # The window.
+    handed: dict = {}
+    i, limit = warm, n_total - (n_trace * TRACE_SESSIONS if trace else 0)
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        setup_s = t0 - t_start
+        now = t0
+        while now - t0 < seconds:
+            if i >= limit:
+                raise RuntimeError(
+                    f"the window used all {limit - warm} frames of the supply: the program keeps "
+                    f"up with the {rate:g} Hz sensor here, so the cell must be re-paced")
+            handed[i] = now
+            pose = track(i)
+            i += 1
+            now = time.perf_counter()
+            answers.collect(now, pose)
+        sysm.tracker.flush_pending()
+        if cuda:
+            torch.cuda.synchronize(device)
+        t_end = time.perf_counter()
+    finally:
+        gc.enable()
+    answers.collect(t_end)
+    window_s = t_end - t0
+    window = sorted(handed)
+    resolved = [j for j in window if j in answers.by_frame]
+    latency_ms = [(answers.by_frame[j][2] - handed[j]) * 1e3 for j in resolved]
+    ctx = dict(frames=len(window),
+               stages={k: v[0] for k, v in sysm.metrics.stage_totals.items()},
+               track_stage_ms=dict(sysm.tracker.stage_ms),
+               local_ba=sysm.local_mapping.n_local_ba - ba0, trace=None)
+
+    # The profiler sessions, after the window so its numbers are untraced.
+    sessions = []
+    judged = list(window)
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        undo = traced_stages(sysm.metrics)
+        for _ in range(TRACE_SESSIONS):
+            first = judged[-1] + 1
+            with profile(activities=acts) as prof:
+                w0 = time.perf_counter()
+                for j in range(first, first + n_trace):
+                    pose = track(j)
+                    answers.collect(time.perf_counter(), pose)
+                sysm.tracker.flush_pending()
+                if cuda:
+                    torch.cuda.synchronize(device)
+                w1 = time.perf_counter()
+            answers.collect(w1)
+            judged += list(range(first, first + n_trace))
+            dev, host = tr.raw_events(prof)
+            kernels = tr.kernels_of(dev)
+            sessions.append(len(kernels))
+            if kernels or not cuda:
+                break
+        undo()
+        if cuda and not kernels:
+            raise RuntimeError(f"{TRACE_SESSIONS} profiler sessions recorded no CUDA kernel")
+        span = (min(e[1] for e in dev + host), max(e[2] for e in dev + host)) if dev else None
+        ctx["trace"] = dict(frames=n_trace, wall_s=w1 - w0, kernels=kernels,
+                            launches=tr.launches(host),
+                            busy_s=tr.union_us((s, e) for _, s, e in kernels) / 1e6,
+                            sessions=sessions)
+        breakdown = dict(device_ops=tr.top_ops(kernels),
+                         idle_gaps=tr.idle_by_stage(kernels, host, span) if span else [])
+
+    memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    loops = sysm.loop_closing.n_loops_closed if sysm.loop_closing is not None else 0
+    m = sysm.map
+    map_xyz = np.asarray(m.pt_xyz[m.pt_valid], np.float64)
+    n_kf = len(m.live_keyframes())
+    del sysm, track
+    answers.sysm = answers.tracker = None
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # The reference, after the program's state is freed.
+    values = reference.readings(answers.by_frame, judged, world["poses"], loops, rigid=stereo)
+    checks = reference.judge(values, config["correct"])
+    e2e = dict(fps=len(resolved) / window_s,
+               pose_latency_ms_p90=p90(latency_ms) if latency_ms else math.inf,
+               setup_s=setup_s)
+    units = {m_["name"]: m_["unit"] for m_ in spec["end_to_end"] + spec["per_layer"]}
+    if trace:
+        metrics = {}
+        for m_ in spec["per_layer"]:
+            v = spec["readers"][m_["name"]].read(ctx)
+            if v is not None:
+                metrics[m_["name"]] = {"value": v, "unit": units[m_["name"]]}
+    else:
+        metrics = {m_["name"]: {"value": e2e[m_["name"]], "unit": m_["unit"]}
+                   for m_ in spec["end_to_end"]}
+    device_rec = dict(platform="gpu" if cuda else device.type,
+                      kind=torch.cuda.get_device_name(device) if cuda else "cpu",
+                      count=spec["cell"]["chips"], memory_peak_bytes=int(memory_peak))
+    if trace:
+        device_rec.update(busy_s=ctx["trace"]["busy_s"], window_s=ctx["trace"]["wall_s"])
+    failed = values["unresolved"] + values["lost"]
+    result = dict(correct=all(c[3] for c in checks), attempted=len(judged), failed=failed,
+                  metrics=metrics, device=device_rec)
+    if trace:
+        result["breakdown"] = breakdown
+    result["checks"] = {name: {"value": v, "limit": lim} for name, v, lim, _ in checks}
+    detail = dict(workload=workload, seed=seed, seconds=seconds, trace=bool(trace),
+                  world_blobs=len(world["xw"]), frames_rendered=n_total,
+                  window_frames=len(window), window_s=window_s, setup_s=setup_s,
+                  handed_s=[handed[j] - t0 for j in window],
+                  resolved_s=[answers.by_frame[j][2] - t0 if j in answers.by_frame else None
+                              for j in window],
+                  stage_ms=ctx["stages"], track_stage_ms=ctx["track_stage_ms"],
+                  local_ba=ctx["local_ba"], keyframes=n_kf, map_points=len(map_xyz),
+                  resets=answers.resets, readings=values, e2e=e2e, precision=in_effect,
+                  trace_sessions=sessions, card=card(device) if cuda else None,
+                  judged=judged,
+                  poses=[answers.by_frame[j][0].astype(np.float32).ravel().tolist()
+                         if j in answers.by_frame else None for j in judged],
+                  tracked=[bool(answers.by_frame[j][1]) if j in answers.by_frame else False
+                           for j in judged],
+                  map_xyz=map_xyz.astype(np.float32).ravel().tolist())
+    return dict(result=result, checks=checks, detail=detail)
+
+
+def write_detail(detail: dict) -> str:
+    """The run's detail file, under the temporary directory the
+    environment gives (``TMPDIR``); a fixed name per cell, seed and mode."""
+    d = os.path.join(tempfile.gettempdir(), "slambench")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{detail['workload']}.seed{detail['seed']}"
+                           f".trace{int(detail['trace'])}.json")
+    with open(path, "w") as f:
+        json.dump(detail, f)
+    return path

@@ -1,0 +1,72 @@
+"""A run of the harness on the CPU at a test size, past its look for a
+card: sound, it comes out correct; with the timed path broken underneath,
+``correct`` comes out false, once for each fault a tracking cell can have:
+a step that returns its state unchanged, and an answer altered where it is
+produced. (A cell of one camera on one chip has no batch to halve and no
+exchange between chips to leave out.)"""
+
+import contextlib
+import json
+import os
+import shutil
+
+import pytest
+
+from slambench import faults, harness
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+SEED = 2**31 + 4242
+SECONDS = 12.0
+
+
+@pytest.fixture(scope="module")
+def small_root(tmp_path_factory):
+    """A checkout root with one throwaway cell: tum_mono at half the
+    resolution on 4 levels, under the explore mix."""
+    root = tmp_path_factory.mktemp("small")
+    shutil.copytree(HERE, root / "slambench", ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = harness.load_json(os.path.join(HERE, "configs", "tum_mono.json"))
+    st = cfg["settings"]
+    for k in ("Camera.fx", "Camera.fy", "Camera.cx", "Camera.cy"):
+        st[k] /= 2
+    st.update({"Camera.width": 320, "Camera.height": 240, "ORBextractor.nFeatures": 500,
+               "ORBextractor.nLevels": 4})
+    # This size's own limit, set from its own readings on the CPU over some
+    # 22 window frames: sound, ATE 0.0047 m; the state left unchanged,
+    # 0.051; the answer altered, 0.034.
+    cfg["correct"] = dict(unresolved=0, lost=0, loops_closed=0, ate_m=0.015)
+    (root / "slambench" / "configs" / "small.json").write_text(json.dumps(cfg))
+    bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    bench["configs"].append(dict(name="small", source="test", file="slambench/configs/small.json",
+                                 reduced=[], why="test size"))
+    bench["workloads"].append(dict(name="small.explore", config="small", traffic="explore",
+                                   chips=1, why="test size"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return str(root)
+
+
+def run_with(root, fault=None):
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        with faults.planted(fault) if fault else contextlib.nullcontext():
+            return harness.run("small.explore", SEED, SECONDS, False, device="cpu", root=root)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_sound_run_is_correct(small_root):
+    out = run_with(small_root)
+    assert out["result"]["correct"], out["checks"]
+    assert out["detail"]["window_frames"] > faults.ALTERED_FRAME - faults.WARMUP
+    assert out["result"]["attempted"] == out["detail"]["window_frames"]
+
+
+@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+def test_fault_is_not_correct(small_root, fault):
+    out = run_with(small_root, fault)
+    assert not out["result"]["correct"]
+    assert any(not c[3] for c in out["checks"])
