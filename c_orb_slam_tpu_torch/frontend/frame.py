@@ -16,6 +16,7 @@ import torch
 from c_orb_slam_tpu_torch.config import SlamConfig
 from c_orb_slam_tpu_torch.geometry import camera
 from c_orb_slam_tpu_torch.ops import extract, match, orient, pyramid
+from c_orb_slam_tpu_torch.utils.metrics import no_span
 
 
 class FrameData(NamedTuple):
@@ -31,8 +32,16 @@ class FrameData(NamedTuple):
     depth: torch.Tensor  # (N,) depth (-1 = none)
 
 
-def build_mono(image: torch.Tensor, cfg: SlamConfig) -> FrameData:
-    kps = extract.extract_orb(image, cfg.orb, cfg.vocabulary.seed)
+def _extract(image: torch.Tensor, cfg: SlamConfig, span) -> extract.Keypoints:
+    with span("frame.extract"):
+        return extract.extract_orb(image, cfg.orb, cfg.vocabulary.seed, span)
+
+
+def build_mono(image: torch.Tensor, cfg: SlamConfig, span=no_span) -> FrameData:
+    """Monocular: one extraction. `span(name)` times it as
+    ``frame.extract`` with its parts (extract.extract_orb); System passes
+    its Metrics.stage."""
+    kps = _extract(image, cfg, span)
     K = camera.intrinsics_array(cfg.camera, image.device)
     dist = camera.distortion_array(cfg.camera, image.device)
     minus_one = torch.full_like(kps.response, -1.0)
@@ -48,10 +57,11 @@ def build_mono(image: torch.Tensor, cfg: SlamConfig) -> FrameData:
     )
 
 
-def build_rgbd(image: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig) -> FrameData:
+def build_rgbd(image: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig,
+               span=no_span) -> FrameData:
     """RGB-D: read depth at keypoint locations, synthesize the virtual
     right coordinate ur = u - bf/d (reference: Frame.cc:643-664)."""
-    f = build_mono(image, cfg)
+    f = build_mono(image, cfg, span)
     h, w = depth_map.shape
     y = torch.clamp(torch.round(f.xy_raw[:, 1]).long(), 0, h - 1)
     x = torch.clamp(torch.round(f.xy_raw[:, 0]).long(), 0, w - 1)
@@ -118,28 +128,32 @@ def _stereo_match(kl: extract.Keypoints, kr: extract.Keypoints, cfg: SlamConfig)
     return m, torch.where(m.valid, kr.xy[m.idx.long(), 0], -1.0)
 
 
-def build_stereo(left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig) -> FrameData:
+def build_stereo(left: torch.Tensor, right: torch.Tensor, cfg: SlamConfig,
+                 span=no_span) -> FrameData:
     """Stereo: extract on both images, row-banded Hamming match, SAD
     subpixel disparity -> depth (reference: Frame.cc:466-640
     ComputeStereoMatches). The reference's per-row candidate tables become
     one masked (L, R) distance matrix with a row-band, disparity and
     octave mask; the SAD refinement and the median-SAD outlier trim
-    (:626-639) run over all matches at once."""
-    kl = extract.extract_orb(left, cfg.orb, cfg.vocabulary.seed)
-    kr = extract.extract_orb(right, cfg.orb, cfg.vocabulary.seed)
+    (:626-639) run over all matches at once. `span(name)` times the
+    extractions, ``frame.stereo_match`` and ``frame.stereo_sad``."""
+    kl = _extract(left, cfg, span)
+    kr = _extract(right, cfg, span)
     # Rectified input: keypoints are used as they are (Frame.cc:407-411).
     xy_u = kl.xy
-    m, ur0 = _stereo_match(kl, kr, cfg)
-    ur, keep, sad = _stereo_subpixel(left, right, cfg, kl.xy, kl.octave, ur0, m.valid)
-    good = m.valid & keep
-    # Median-SAD trim: drop SAD >= 1.5 * 1.4 * median; the median is the
-    # element (cnt - 1) // 2 of the inf-padded sort.
-    srt = torch.sort(torch.where(good, sad, float("inf"))).values
-    cnt = good.sum()
-    med = srt[torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), min=0)]
-    good = good & (sad < 1.5 * 1.4 * torch.clamp(med, min=1e-6))
-    depth = torch.where(good, cfg.camera.bf / torch.clamp(xy_u[:, 0] - ur, min=0.01), -1.0)
-    good = good & (depth > 0)
+    with span("frame.stereo_match"):
+        m, ur0 = _stereo_match(kl, kr, cfg)
+    with span("frame.stereo_sad"):
+        ur, keep, sad = _stereo_subpixel(left, right, cfg, kl.xy, kl.octave, ur0, m.valid)
+        good = m.valid & keep
+        # Median-SAD trim: drop SAD >= 1.5 * 1.4 * median; the median is the
+        # element (cnt - 1) // 2 of the inf-padded sort.
+        srt = torch.sort(torch.where(good, sad, float("inf"))).values
+        cnt = good.sum()
+        med = srt[torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), min=0)]
+        good = good & (sad < 1.5 * 1.4 * torch.clamp(med, min=1e-6))
+        depth = torch.where(good, cfg.camera.bf / torch.clamp(xy_u[:, 0] - ur, min=0.01), -1.0)
+        good = good & (depth > 0)
     return FrameData(
         xy=xy_u,
         xy_raw=kl.xy,

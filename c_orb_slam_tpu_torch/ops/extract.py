@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from c_orb_slam_tpu_torch.config import OrbConfig
 from c_orb_slam_tpu_torch.ops import brief, fast, orient, pyramid
+from c_orb_slam_tpu_torch.utils.metrics import no_span
 
 
 class Keypoints(NamedTuple):
@@ -117,14 +118,22 @@ def describe_levels(levels: list, picks: list, angles: list, seed: int) -> list:
             for img, pick, ang in zip(levels, picks, angles)]
 
 
-def extract_orb(image: torch.Tensor, cfg: OrbConfig, seed: int = 7) -> Keypoints:
+def extract_orb(image: torch.Tensor, cfg: OrbConfig, seed: int = 7,
+                span=no_span) -> Keypoints:
     """ORB keypoints + descriptors of a grayscale (H, W) float32 image in
     [0, 255]; every level runs detection, selection, orientation, blur
-    and description (one function each, over all levels)."""
-    levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
-    picks = select_levels(detect_levels(levels, cfg), cfg)
-    angles = orient_levels(levels, picks, cfg)
-    descs = describe_levels(levels, picks, angles, seed)
+    and description (one function each, over all levels). `span(name)`
+    times each part (``frame.pyramid``, ``frame.detect``,
+    ``frame.orient``, ``frame.describe``): System passes its
+    Metrics.stage."""
+    with span("frame.pyramid"):
+        levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
+    with span("frame.detect"):
+        picks = select_levels(detect_levels(levels, cfg), cfg)
+    with span("frame.orient"):
+        angles = orient_levels(levels, picks, cfg)
+    with span("frame.describe"):
+        descs = describe_levels(levels, picks, angles, seed)
     budgets = cfg.features_per_level()
     scales = cfg.scale_factors()
 

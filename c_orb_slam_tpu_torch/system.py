@@ -132,6 +132,7 @@ class System:
             self.loop_closing.mapper = self.local_mapping
             self.tracker.reloc_provider = self.loop_closing
         self.tracker.mapper = self.local_mapping
+        self.tracker.metrics = self.metrics
         self.local_mapping.on_keyframe_done = self._on_mapping_done
         self.local_mapping.metrics = self.metrics
 
@@ -143,7 +144,8 @@ class System:
     def track_monocular(self, image, timestamp: float) -> Optional[np.ndarray]:
         self._check_sensor(Sensor.MONOCULAR, "track_monocular")
         with self.metrics.stage("frame_build"):
-            f = frame_mod.build_mono(_to_gray_f32(image, self.device), self.cfg)
+            f = frame_mod.build_mono(_to_gray_f32(image, self.device), self.cfg,
+                                     self.metrics.stage)
         return self._track(f, timestamp)
 
     def track_stereo(self, left, right, timestamp: float) -> Optional[np.ndarray]:
@@ -151,7 +153,8 @@ class System:
         self._check_sensor(Sensor.STEREO, "track_stereo")
         with self.metrics.stage("frame_build"):
             f = frame_mod.build_stereo(
-                _to_gray_f32(left, self.device), _to_gray_f32(right, self.device), self.cfg
+                _to_gray_f32(left, self.device), _to_gray_f32(right, self.device), self.cfg,
+                self.metrics.stage,
             )
         return self._track(f, timestamp)
 
@@ -162,6 +165,7 @@ class System:
                 _to_gray_f32(image, self.device),
                 _as_tensor(depth, self.device).to(torch.float32),
                 self.cfg,
+                self.metrics.stage,
             )
         return self._track(f, timestamp)
 
@@ -273,10 +277,14 @@ class System:
         self.tracker.only_tracking = False
 
     def reset(self):
-        """Reference: System::Reset -> Tracking::Reset (Tracking.cc:1504)."""
+        """Reference: System::Reset -> Tracking::Reset (Tracking.cc:1504).
+        The metrics and the tracker's sub-stage totals live on: they cover
+        the frames before the reset too (the auto-reset path counts itself
+        first)."""
         voc = self.loop_closing.voc if self.loop_closing else None
+        stage_ms = self.tracker.stage_ms
         self._build_pipeline(MapState(self.cfg, compute_device=self.device), voc)
-        self.metrics.reset()
+        self.tracker.stage_ms = stage_ms
 
     def shutdown(self):
         """Drain the tracking, mapping and loop pipelines (the reference

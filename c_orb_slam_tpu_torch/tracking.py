@@ -15,7 +15,7 @@ visual-odometry points (reference: Tracking.cc:283-361, 801-865).
 from __future__ import annotations
 
 import collections
-import time
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -28,6 +28,7 @@ from c_orb_slam_tpu_torch.ops import match, pnp, twoview
 from c_orb_slam_tpu_torch.optim import ba as ba_mod, pose_opt
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
 from c_orb_slam_tpu_torch.utils.host import fetch, fetch_async, to_device
+from c_orb_slam_tpu_torch.utils.metrics import Metrics, no_span
 
 
 class TrackState:
@@ -156,77 +157,82 @@ def _local_map_step(cfg: SlamConfig, T0, local_idx, pt_fresh, seed_mp, PT_xyz,
 def _full_track_step(cfg: SlamConfig, T_pred, last_mp, last_octave, last_desc,
                      vo_xyz, vo_valid, local_idx, PT_xyz, PT_normal, PT_mind, PT_maxd,
                      PT_desc, PT_valid, f, K, inv_sigma2_levels, sf,
-                     radius_mult: float = 1.0):
+                     radius_mult: float = 1.0, span=no_span):
     """The whole per-frame tracking compute, queued on the device with no
     readback: motion-model projection matching -> pose GN -> frustum cull
     of the covisibility-local points -> projection matching -> pose GN
     (reference: Tracking.cc:313 + :930). Map data is read from the
-    device-resident mirror by index (last_mp, local_idx).
+    device-resident mirror by index (last_mp, local_idx). `span(name)`
+    times the four parts: ``track.motion_search``, ``track.motion_pose``,
+    ``track.local_search``, ``track.local_pose``.
 
     Visual-odometry rows (localization mode, reference Tracking.cc:801-865):
     a row with vo_valid takes the world position vo_xyz and the last
     frame's descriptor instead of map data; its last_mp is -1, so it
     constrains the pose but never binds to a map point."""
     n_levels = cfg.orb.n_levels
-    safe_q = torch.clamp(last_mp, min=0).long()
-    q_xyz = torch.where(vo_valid[:, None], vo_xyz, PT_xyz[safe_q])
-    q_desc = torch.where(vo_valid[:, None], last_desc, PT_desc[safe_q])
-    q_valid = ((last_mp >= 0) & PT_valid[safe_q]) | vo_valid
-    safe_l = torch.clamp(local_idx, min=0).long()
-    pt_xyz, pt_desc = PT_xyz[safe_l], PT_desc[safe_l]
-    pt_valid = (local_idx >= 0) & PT_valid[safe_l]
-
     # --- Stage 1: motion model (Tracking.cc:867) ---
-    xc = se3.apply(T_pred, q_xyz)
-    uv = camera.project(xc, K)
-    radii = 15.0 * radius_mult * sf[last_octave.long()]
-    m1 = match.search_by_projection(
-        uv, radii, q_desc, q_valid & (xc[:, 2] > 0),
-        f.xy, f.octave, f.desc, f.valid,
-        torch.clamp(last_octave - 1, min=0), torch.clamp(last_octave + 1, max=n_levels - 1),
-        max_dist=cfg.matcher.th_high, nn_ratio=cfg.matcher.nn_ratio_tracking,
-    )
-    r1 = _pose_opt_over_queries(cfg, T_pred, q_xyz, m1, f, inv_sigma2_levels, K)
+    with span("track.motion_search"):
+        safe_q = torch.clamp(last_mp, min=0).long()
+        q_xyz = torch.where(vo_valid[:, None], vo_xyz, PT_xyz[safe_q])
+        q_desc = torch.where(vo_valid[:, None], last_desc, PT_desc[safe_q])
+        q_valid = ((last_mp >= 0) & PT_valid[safe_q]) | vo_valid
+        xc = se3.apply(T_pred, q_xyz)
+        uv = camera.project(xc, K)
+        radii = 15.0 * radius_mult * sf[last_octave.long()]
+        m1 = match.search_by_projection(
+            uv, radii, q_desc, q_valid & (xc[:, 2] > 0),
+            f.xy, f.octave, f.desc, f.valid,
+            torch.clamp(last_octave - 1, min=0), torch.clamp(last_octave + 1, max=n_levels - 1),
+            max_dist=cfg.matcher.th_high, nn_ratio=cfg.matcher.nn_ratio_tracking,
+        )
+    with span("track.motion_pose"):
+        r1 = _pose_opt_over_queries(cfg, T_pred, q_xyz, m1, f, inv_sigma2_levels, K)
     mm_ok = (m1.valid.sum() >= 20) & (r1.n_inliers >= cfg.tracking.min_inliers_pose)
     pose1 = torch.where(mm_ok, r1.pose, T_pred)
 
-    # Per-feature seed assignment from stage-1 inliers.
-    n_feat = f.xy.shape[0]
-    good_q = m1.valid & r1.inliers & mm_ok
-    feat_q1 = _scatter_rows(m1._replace(valid=good_q), n_feat)
-    seed_valid = feat_q1 >= 0
-    seed_xyz = torch.where(
-        seed_valid[:, None], q_xyz[torch.clamp(feat_q1, min=0).long()], 0.0
-    )
-
     # --- Stage 2: local map (Tracking.cc:930, 1143) ---
-    in_view, uv2, octave2, view_cos = _frustum(
-        cfg, pose1, pt_xyz, PT_normal[safe_l], PT_mind[safe_l], PT_maxd[safe_l], pt_valid, K
-    )
-    # Exclude local points already matched by stage 1 (sorted matched ids
-    # + searchsorted membership test).
-    matched_ids = torch.sort(torch.where(good_q, last_mp, 2**30)).values
-    pos = torch.searchsorted(matched_ids, local_idx)
-    already = matched_ids[torch.clamp(pos, max=last_mp.shape[0] - 1)] == local_idx
-    fresh = pt_valid & ~already
-    radii2 = torch.where(view_cos > 0.998, 4.0, 6.0) * sf[octave2.long()]
-    m2 = match.search_by_projection(
-        uv2, radii2, pt_desc, in_view & fresh,
-        f.xy, f.octave, f.desc, f.valid & ~seed_valid,
-        torch.clamp(octave2 - 3, min=0), torch.clamp(octave2 + 2, max=n_levels - 1),
-        max_dist=cfg.matcher.th_high, nn_ratio=cfg.matcher.nn_ratio_mapping + 0.2,
-    )
-    feat_q2 = _scatter_rows(m2, n_feat)
-    feat_new2 = feat_q2 >= 0
-    xyz_feat = torch.where(
-        feat_new2[:, None], pt_xyz[torch.clamp(feat_q2, min=0).long()], seed_xyz
-    )
-    valid_feat = feat_new2 | seed_valid
-    is_stereo = (f.ur > 0) & valid_feat
-    obs = torch.cat([f.xy, torch.where(is_stereo, f.ur, 0.0)[:, None]], dim=1)
-    r2 = _optimize(
-        cfg, pose1, xyz_feat, obs, inv_sigma2_levels[f.octave.long()], is_stereo, valid_feat, K
-    )
+    with span("track.local_search"):
+        # Per-feature seed assignment from stage-1 inliers.
+        n_feat = f.xy.shape[0]
+        good_q = m1.valid & r1.inliers & mm_ok
+        feat_q1 = _scatter_rows(m1._replace(valid=good_q), n_feat)
+        seed_valid = feat_q1 >= 0
+        seed_xyz = torch.where(
+            seed_valid[:, None], q_xyz[torch.clamp(feat_q1, min=0).long()], 0.0
+        )
+        safe_l = torch.clamp(local_idx, min=0).long()
+        pt_xyz, pt_desc = PT_xyz[safe_l], PT_desc[safe_l]
+        pt_valid = (local_idx >= 0) & PT_valid[safe_l]
+        in_view, uv2, octave2, view_cos = _frustum(
+            cfg, pose1, pt_xyz, PT_normal[safe_l], PT_mind[safe_l], PT_maxd[safe_l], pt_valid, K
+        )
+        # Exclude local points already matched by stage 1 (sorted matched ids
+        # + searchsorted membership test).
+        matched_ids = torch.sort(torch.where(good_q, last_mp, 2**30)).values
+        pos = torch.searchsorted(matched_ids, local_idx)
+        already = matched_ids[torch.clamp(pos, max=last_mp.shape[0] - 1)] == local_idx
+        fresh = pt_valid & ~already
+        radii2 = torch.where(view_cos > 0.998, 4.0, 6.0) * sf[octave2.long()]
+        m2 = match.search_by_projection(
+            uv2, radii2, pt_desc, in_view & fresh,
+            f.xy, f.octave, f.desc, f.valid & ~seed_valid,
+            torch.clamp(octave2 - 3, min=0), torch.clamp(octave2 + 2, max=n_levels - 1),
+            max_dist=cfg.matcher.th_high, nn_ratio=cfg.matcher.nn_ratio_mapping + 0.2,
+        )
+        feat_q2 = _scatter_rows(m2, n_feat)
+        feat_new2 = feat_q2 >= 0
+        xyz_feat = torch.where(
+            feat_new2[:, None], pt_xyz[torch.clamp(feat_q2, min=0).long()], seed_xyz
+        )
+        valid_feat = feat_new2 | seed_valid
+        is_stereo = (f.ur > 0) & valid_feat
+        obs = torch.cat([f.xy, torch.where(is_stereo, f.ur, 0.0)[:, None]], dim=1)
+    with span("track.local_pose"):
+        r2 = _optimize(
+            cfg, pose1, xyz_feat, obs, inv_sigma2_levels[f.octave.long()], is_stereo,
+            valid_feat, K
+        )
     # Device-chained pose for the next frame's prediction (no host round
     # trip); on a failed step it falls back to the propagated prediction.
     chain_ok = mm_ok & (r2.n_inliers >= cfg.tracking.min_inliers_pose)
@@ -297,10 +303,14 @@ class Tracking:
         # (Tracking.cc:488-505, System.cc:345-380).
         self.trajectory: list = []
         self.current_inliers = 0
+        # The spans' registry: System hands in its own, as it does the
+        # mapper's.
+        self.metrics = Metrics()
         # Host wall ms of the fused hot path's sub-stages, summed over
-        # frames (the JAX package's names and boundaries): read by
-        # tools/profile_stages.py from the real code path, so the profile
-        # cannot go stale against a copy of it.
+        # frames (the JAX package's names and boundaries): the ms of the
+        # spans track.<name> (_substage), read by tools/profile_stages.py
+        # from the real code path, so the profile cannot go stale against a
+        # copy of it.
         self.stage_ms: dict = {}
         # In-flight frames (frame, dispatch record, timestamp), applied at
         # the next track() (see there).
@@ -322,10 +332,13 @@ class Tracking:
         if self.ref_kf == k:
             self.ref_kf = parent_k
 
-    def _mark(self, name: str, t0: float) -> float:
-        t = time.perf_counter()
-        self.stage_ms[name] = self.stage_ms.get(name, 0.0) + (t - t0) * 1000
-        return t
+    @contextlib.contextmanager
+    def _substage(self, name: str, key: Optional[str] = None):
+        """The span ``track.<name>``, its ms added to stage_ms[key or name]."""
+        with self.metrics.stage("track." + name):
+            yield
+        key = key or name
+        self.stage_ms[key] = self.stage_ms.get(key, 0.0) + self.metrics.last_ms
 
     # ------------------------------------------------------------------
     def track(self, f: frame_mod.FrameData) -> Optional[np.ndarray]:
@@ -664,76 +677,73 @@ class Tracking:
         the dispatch record for _fused_apply, or None if the frame can't
         take the fused path. The local point set comes from the previous
         frame's covisibility (one frame stale)."""
-        t_in = time.perf_counter()
-        vo_xyz_d, vo_valid_d = self._vo_arrays(f.xy.shape[0])
-        t0 = time.perf_counter()
-        vo_s = t0 - t_in
+        # _vo_arrays runs first, since the gate counts its rows: its time
+        # goes under "prep", where the JAX package calls it.
+        with self._substage("vo", "prep"):
+            vo_xyz_d, vo_valid_d = self._vo_arrays(f.xy.shape[0])
         vo_host = isinstance(vo_valid_d, np.ndarray)
-        n_queries = int((self.last_mp >= 0).sum())
-        if vo_host:
-            # VO rows are queries too: counting them keeps VO mode alive
-            # past the frame that entered it (the JAX package counts map
-            # rows only, so its VO mode ends in LOST one frame later).
-            n_queries += int(vo_valid_d.sum())
-        if n_queries < 10:
-            return None
-        local_pts = self._local_points(self._local_keyframes(self.last_mp))
+        with self._substage("select"):
+            n_queries = int((self.last_mp >= 0).sum())
+            if vo_host:
+                # VO rows are queries too: counting them keeps VO mode alive
+                # past the frame that entered it (the JAX package counts map
+                # rows only, so its VO mode ends in LOST one frame later).
+                n_queries += int(vo_valid_d.sum())
+            local_pts = (self._local_points(self._local_keyframes(self.last_mp))
+                         if n_queries >= 10 else [])
         if len(local_pts) == 0:
             return None
-        t0 = self._mark("select", t0)
-        cap = self.cfg.capacity.local_map_max_points
-        pts_pad = np.full(cap, -1, np.int32)
-        pts_pad[: min(len(local_pts), cap)] = local_pts[:cap]
-        safe = np.maximum(pts_pad, 0)
-        if self._chain is None:
-            # Extrapolate across the actual lag; prev at 1-frame spacing so
-            # the next on-chain prediction is a 1-frame velocity.
-            T_pred = np.vstack([self.last_pose, [0, 0, 0, 1]])
-            vel_h = np.vstack([self.velocity, [0, 0, 0, 1]])
-            T_prev = T_pred
-            for _ in range(len(self._pending) + 1):
+        with self._substage("prep"):
+            cap = self.cfg.capacity.local_map_max_points
+            pts_pad = np.full(cap, -1, np.int32)
+            pts_pad[: min(len(local_pts), cap)] = local_pts[:cap]
+            safe = np.maximum(pts_pad, 0)
+            if self._chain is None:
+                # Extrapolate across the actual lag; prev at 1-frame spacing so
+                # the next on-chain prediction is a 1-frame velocity.
+                T_pred = np.vstack([self.last_pose, [0, 0, 0, 1]])
+                vel_h = np.vstack([self.velocity, [0, 0, 0, 1]])
                 T_prev = T_pred
-                T_pred = vel_h @ T_pred
-            lag = len(self._pending) + 1
-            radius_mult = (1.0, 1.5, 2.0)[min(lag - 1, 2)]
-        else:
-            radius_mult = 1.0
-        # _vo_arrays ran first, since the gate counts its rows: its time
-        # goes under "prep", where the JAX package calls it.
-        t0 = self._mark("prep", t0 - vo_s)
+                for _ in range(len(self._pending) + 1):
+                    T_prev = T_pred
+                    T_pred = vel_h @ T_pred
+                lag = len(self._pending) + 1
+                radius_mult = (1.0, 1.5, 2.0)[min(lag - 1, 2)]
+            else:
+                radius_mult = 1.0
         dev = self.map.device
-        dev.flush()
-        t0 = self._mark("flush", t0)
-        last_mp_d, local_idx_d = to_device(
-            self.device, self.last_mp.astype(np.int32), pts_pad
-        )
-        if vo_host:
-            vo_xyz_d, vo_valid_d = to_device(self.device, vo_xyz_d, vo_valid_d)
-        frac = self.cfg.tracking.velocity_rotation_fraction
-        if self._chain is not None:
-            # Device pose chain: 1-frame prediction lag at any depth.
-            T_pred_d = _chain_predict(self._chain[0], self._chain[1], frac)
-            prev_pose_d = self._chain[0]
-        else:
-            T_pred_d, prev_pose_d = to_device(
-                self.device, T_pred[:3].astype(np.float32), T_prev[:3].astype(np.float32)
+        with self._substage("flush"):
+            dev.flush()
+        with self._substage("upload"):
+            last_mp_d, local_idx_d = to_device(
+                self.device, self.last_mp.astype(np.int32), pts_pad
             )
-        t0 = self._mark("upload", t0)
+            if vo_host:
+                vo_xyz_d, vo_valid_d = to_device(self.device, vo_xyz_d, vo_valid_d)
+            frac = self.cfg.tracking.velocity_rotation_fraction
+            if self._chain is not None:
+                # Device pose chain: 1-frame prediction lag at any depth.
+                T_pred_d = _chain_predict(self._chain[0], self._chain[1], frac)
+                prev_pose_d = self._chain[0]
+            else:
+                T_pred_d, prev_pose_d = to_device(
+                    self.device, T_pred[:3].astype(np.float32), T_prev[:3].astype(np.float32)
+                )
         head_args = (self.cfg, T_pred_d, last_mp_d, self.last_frame.octave,
                      self.last_frame.desc, vo_xyz_d, vo_valid_d, local_idx_d)
         tail_args = (f, self.K, self.inv_sigma2_levels, self._sf_dev)
-        out, chain_pose = _full_track_step(
-            *head_args,
-            dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
-            dev.pt_desc, dev.pt_valid,
-            *tail_args, radius_mult=radius_mult,
-        )
+        with self._substage("dispatch"):
+            out, chain_pose = _full_track_step(
+                *head_args,
+                dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
+                dev.pt_desc, dev.pt_valid,
+                *tail_args, radius_mult=radius_mult, span=self.metrics.stage,
+            )
         self._chain = (chain_pose, prev_pose_d)
-        t0 = self._mark("dispatch", t0)
         # The frame descriptors ride the same readback (per-frame point
         # descriptor refresh in _fused_postprocess).
-        fut = fetch_async(*out, f.desc)
-        self._mark("prefetch", t0)
+        with self._substage("prefetch"):
+            fut = fetch_async(*out, f.desc)
         return (fut, pts_pad, safe, self.last_mp, (head_args, tail_args))
 
     def _vo_arrays(self, n_feat: int):
@@ -772,9 +782,8 @@ class Tracking:
         bookkeeping. On failure ONE synchronous retry re-runs the step
         with a 3x stage-1 window (Tracking.cc:888-892)."""
         fut, pts_pad, safe, last_mp, (head_args, tail_args) = disp
-        t0 = time.perf_counter()
-        *fetched, f_desc = fut.result()
-        self._mark("fetch", t0)
+        with self._substage("fetch"):
+            *fetched, f_desc = fut.result()
         ok, pose, mp = self._fused_postprocess(f, fetched, pts_pad, safe, last_mp, f_desc)
         if ok:
             return ok, pose, mp
@@ -783,15 +792,16 @@ class Tracking:
         # the host instead (the JAX package keeps extrapolating the failed
         # prediction, doubling its error on the next frame).
         self._chain = None
-        dev = self.map.device
-        dev.flush()
-        wide, _ = _full_track_step(
-            *head_args,
-            dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
-            dev.pt_desc, dev.pt_valid,
-            *tail_args, radius_mult=3.0,
-        )
-        return self._fused_postprocess(f, fetch(*wide), pts_pad, safe, last_mp, f_desc)
+        with self.metrics.stage("track.retry"):
+            dev = self.map.device
+            dev.flush()
+            wide, _ = _full_track_step(
+                *head_args,
+                dev.pt_xyz, dev.pt_normal, dev.pt_min_dist, dev.pt_max_dist,
+                dev.pt_desc, dev.pt_valid,
+                *tail_args, radius_mult=3.0,
+            )
+            return self._fused_postprocess(f, fetch(*wide), pts_pad, safe, last_mp, f_desc)
 
     def _fused_postprocess(self, f, fetched, pts_pad, safe, last_mp, f_desc):
         (mm_ok, m1_idx, good_q, in_view, m2_idx, m2_valid, pose2, inl_feat, n2) = fetched
