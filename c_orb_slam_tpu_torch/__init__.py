@@ -8,9 +8,10 @@ numpy, never jax, and nothing from the JAX package.
 
 Every function takes its tensors on an explicit ``torch.device`` that the
 caller chose (``System(cfg, device)`` carries it down); there is no global
-default device. On a CUDA device the projection-window matcher runs the
-hand-written Hopper kernel ``csrc/window_top2.cu`` (built at first use);
-on the CPU it runs the kernel's plain PyTorch version.
+default device. On a CUDA device the projection-window matcher and the
+motion-only pose solve run the hand-written Hopper kernels
+``csrc/window_top2.cu`` and ``csrc/pose_gn.cu`` (built at first use); on
+the CPU they run the kernels' plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -29,23 +29,11 @@ two.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from c_orb_slam_tpu_torch.ops import hamming, match
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "window_top2.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from c_orb_slam_tpu_torch.utils import nvcc
 
 # Kernel launches since the last reset (the plain version never counts),
 # and how many of them had each shape (B, Q, T).
@@ -53,10 +41,10 @@ launches = 0
 launch_shapes: dict[tuple[int, int, int], int] = {}
 # The kernel packs (distance, index) into 32 bits: 9 for the distance.
 MAX_TARGETS = 1 << 23
-# nvcc's output of the build this process made (ptxas register and
-# shared-memory report), for the record of a chip run.
-build_log = ""
-_lib = None
+_SIGNATURES = {
+    "window_top2_launch": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5,
+    "window_top2_empty_launch": [ctypes.c_void_p],
+}
 
 
 def reset_launches():
@@ -65,60 +53,16 @@ def reset_launches():
     launch_shapes.clear()
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> str:
-    """Compile csrc/window_top2.cu for sm_90a into _build/ (once per
-    source content) and return the shared library's path."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libwindow_top2_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.window_top2_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        lib.window_top2_empty_launch.argtypes = [ctypes.c_void_p]
-        lib.window_top2_empty_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def load():
+    """The kernel's library (csrc/window_top2.cu for sm_90a, built at
+    first use)."""
+    return nvcc.load("window_top2", _SIGNATURES)
 
 
 def empty_launch(device):
     """Launch an empty kernel on the device's current stream through the
     same ctypes route as window_top2: the time no design goes under."""
-    lib = _load()
+    lib = load()
     with torch.cuda.device(device):
         err = lib.window_top2_empty_launch(torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -213,7 +157,7 @@ def window_top2(
     outs = torch.empty((4, *shape), dtype=torch.int32, device=device).unbind(0)
     if B * Q == 0:
         return outs
-    lib = _load()
+    lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.window_top2_launch(

@@ -32,7 +32,8 @@ over the timed window: ``ms_per_frame`` (mean wall), ``host_ms_median``
 LM iterations: the solves times the configured iterations of a local BA)
 and ``dense_schur_lm_iters_failed`` (those whose float32 factorization
 failed, counted on the device and read once after the window) and
-``window_top2_launches``; over the run, ``loops_closed``;
+``window_top2_launches`` and ``pose_gn_launches`` (the two hand-written
+kernels'); over the run, ``loops_closed``;
 and the device's name, its power limit as nvidia-smi reports it, and the
 torch version.
 """
@@ -194,7 +195,7 @@ def run_config(name, entry, cfg, frames, traj, *, device):
     from c_orb_slam_tpu_torch.config import Sensor
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
     from c_orb_slam_tpu_torch.ops import window_top2
-    from c_orb_slam_tpu_torch.optim import ba
+    from c_orb_slam_tpu_torch.optim import ba, pose_opt
     from c_orb_slam_tpu_torch.tracking import TrackState
 
     device = torch.device(device)
@@ -204,6 +205,7 @@ def run_config(name, entry, cfg, frames, traj, *, device):
     sysm.metrics.reset()  # the stages below cover the timed window
     ba.reset_failed_factorizations()
     window_top2.reset_launches()
+    pose_opt.reset_launches()
     n_ba = sysm.local_mapping.n_local_ba
     host_ms = []
     t0 = time.perf_counter()
@@ -217,6 +219,7 @@ def run_config(name, entry, cfg, frames, traj, *, device):
     n_timed = n_frames - warmup
     fps = n_timed / dt
     launches = window_top2.launches
+    pose_launches = pose_opt.launches
     n_ba = sysm.local_mapping.n_local_ba - n_ba
     stages = {k: round(v["total_ms"] / n_timed, 3)
               for k, v in sysm.metrics.summary()["stages"].items()}
@@ -241,6 +244,7 @@ def run_config(name, entry, cfg, frames, traj, *, device):
         "dense_schur_lm_iters": iters,
         "dense_schur_lm_iters_failed": failed,
         "window_top2_launches": launches,
+        "pose_gn_launches": pose_launches,
         "loops_closed": sysm.loop_closing.n_loops_closed,
     }
     # Quality gates: lost tracking or excess ATE zeroes the score.

@@ -17,11 +17,20 @@ what a call costs the main path), the kernel also as a CUDA graph of the
 same 20 calls ("device_ms", its time on the device: the wrapper's host
 side takes longer than the kernel runs), and an empty kernel launched the
 same way; and it computes each case's bound from the case's own inputs.
+Then it builds the pose-solve kernel (csrc/pose_gn.cu) and holds it to
+its plain version (optim/pose_opt.py optimize_pose_reference: poses within
+1e-4, inlier flags equal but at their chi2 gate, n_inliers the flags'
+sums) on the tracker's solve (tests/pose_problems.py: 1 x 2,000 rows of
+KITTI geometry, 60% stereo, 30% gross outliers, 4 x 10 iterations), and
+times it: "ms" per
+call back to back, "device_ms" as a CUDA graph, "host_ms" the wrapper's
+enqueue alone, and the plain version.
 
 Phases 2-5 drive the port's entry points with loop closing off (the main
 path's loop-off runs), each on a synthetic sequence rendered by
 tests/synthetic.py, and check frames tracked, ATE and that window_top2
-launched during that phase's run:
+and the pose-solve kernel launched during that phase's run (each prints
+both kernels' launches):
 - phase 2: System.track_rgbd, 60 frames at TUM RGB-D geometry (640x480,
   1000 features, 8 levels), ATE at absolute scale; local BA must run;
 - phase 3: System.track_monocular on bench.py's mono_tum30 (70 frames, 30
@@ -116,7 +125,8 @@ with loop closing on; stereo_kitti (120 frames) and stereo_kitti_long
 (300) are cut to their first 90, the monocular two run whole. It prints the four records and fails
 unless the child exits 0 and each record holds its bench.py gate, ran its
 frames with loop closing on on this card with its power limit recorded,
-and launched window_top2; those launches count toward the kernel's.
+and launched window_top2 and pose_gn; those launches count toward the
+kernels'.
 
 Phase 12 runs the port's profiling entry points in child processes:
 `python3 -m c_orb_slam_tpu_torch.tools.profile_stages --config mono_tum30
@@ -143,6 +153,7 @@ phase fails. The last line of standard output is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -287,6 +298,90 @@ def window_top2_bound(args):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", inside
 
 
+# Plain float operations of the pose-solve kernel (csrc/pose_gn.cu), counted
+# from its source: a row's residual, Jacobian, weight and its 27 terms of
+# the normal system in one iteration (the transform 18, the projection and
+# residual 20, the projection's Jacobian 17, the pose Jacobian 36, the
+# weight and Huber factor 7, the terms 180), and a row's inlier test at a
+# round's end (the transform, projection, residual and chi2: 40).
+POSE_GN_OPS_PER_ROW_ITERATION = 278
+POSE_GN_OPS_PER_ROW_ROUND = 40
+
+
+def pose_gn_bound(B, N, rounds, iters):
+    """(bound ms, "bytes" or "operations") of one pose solve of B problems
+    of N rows: the rows (points, observations and weight, 7 floats; two
+    flags; an inlier flag out), the poses, K and the counts each read or
+    written once, over
+    the HBM rate, against the kernel's row operations over the lanes' peak
+    rate. The serial 6x6 solve of each iteration is left out: it is a few
+    hundred operations of one thread."""
+    n_bytes = B * N * (4 * 7 + 2 + 1) + B * (2 * 48 + 4) + 16
+    ops = B * N * (rounds * iters * POSE_GN_OPS_PER_ROW_ITERATION
+                   + rounds * POSE_GN_OPS_PER_ROW_ROUND)
+    ops_s, bytes_s = ops / LANE_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def pose_gn_row(dev):
+    """The pose-solve kernel at the tracker's shape against its plain
+    version (tests/test_torch_pose_gn_cuda.py's tolerances: poses within
+    1e-4; inlier flags equal but on rows whose chi2 lies within 1e-3 of
+    their gate; each n_inliers the sum of its flags), and its times: ms per
+    call back to back (CUDA events), as a CUDA graph (the device's time),
+    the wrapper's host ms to enqueue a call, and the plain version's ms."""
+    import numpy as np
+    import torch
+    from c_orb_slam_tpu_torch.optim import pose_opt
+    from c_orb_slam_tpu_torch.optim import residuals as res
+    from c_orb_slam_tpu_torch.utils import nvcc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from pose_problems import tracker_problem
+
+    pose_opt.load()
+    print("nvcc build log (pose_gn):",
+          nvcc.build_logs.get("pose_gn", "").strip().replace("\n", " | "), flush=True)
+    a, kw = tracker_problem(0)
+    args = {**{k: v.to(dev) for k, v in a.items()}, **kw}
+    got = pose_opt.optimize_pose(**args)
+    want = pose_opt.optimize_pose_reference(**args)
+    err = float((got.pose - want.pose).abs().max())
+    if not np.allclose(got.pose.cpu().numpy(), want.pose.cpu().numpy(), rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"pose_gn: pose differs from the plain version by {err:.3e}")
+    r, _, _ = res.residual_and_jacobians(want.pose, args["xw"], args["obs"], args["K"],
+                                         kw["bf"], args["is_stereo"])
+    gate = torch.where(args["is_stereo"], 7.815, 5.991)
+    near = ((res.chi2(r, args["inv_sigma2"]) / gate - 1.0).abs() <= 1e-3).cpu()
+    differ = (got.inliers != want.inliers).cpu()
+    counts = [int(got.n_inliers), int(want.n_inliers)]
+    if (differ & ~near).any():
+        raise AssertionError(f"pose_gn: {int((differ & ~near).sum())} inlier flags differ from "
+                             f"the plain version's away from their gate")
+    if counts != [int(got.inliers.sum()), int(want.inliers.sum())]:
+        raise AssertionError(f"pose_gn: n_inliers {counts} are not the sums of the flags")
+    if abs(counts[0] - counts[1]) > int(differ.sum()):
+        raise AssertionError(f"pose_gn: n_inliers {counts[0]} against the plain version's "
+                             f"{counts[1]}, with {int(differ.sum())} flags apart")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        pose_opt.optimize_pose(**args)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    row = dict(ms=time_call(pose_opt.optimize_pose, args),
+               device_ms=time_graph(pose_opt.optimize_pose, args), host_ms=host_ms,
+               plain_ms=time_call(pose_opt.optimize_pose_reference, args, launches=2, repeats=3),
+               max_abs_err=err, n_inliers=counts, inliers_apart=int(differ.sum()))
+    row["bound_ms"], row["bound_by"] = pose_gn_bound(1, a["xw"].shape[0], 4, 10)
+    print(f"phase1 pose_gn tracker 1x2000 (4 x 10): kernel == plain within 1e-4 (max "
+          f"{err:.2e}; inliers {counts[0]} / {counts[1]}, {int(differ.sum())} flags apart, all "
+          f"at their gate); kernel "
+          f"{row['ms']:.4f} ms back to back, {row['device_ms']:.4f} ms as a CUDA graph, "
+          f"wrapper host {host_ms:.4f} ms; plain {row['plain_ms']:.3f} ms; bound "
+          f"{row['bound_ms']:.5f} ms by {row['bound_by']}", flush=True)
+    return row
+
+
 def phase1(dev):
     """window_top2 kernel == plain version, exactly; both timed, beside
     the empty launch and each case's bound."""
@@ -294,8 +389,11 @@ def phase1(dev):
     import torch
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
 
-    w2.build()
-    print("nvcc build log:", w2.build_log.strip().replace("\n", " | "), flush=True)
+    from c_orb_slam_tpu_torch.utils import nvcc
+
+    w2.load()
+    print("nvcc build log:", nvcc.build_logs.get("window_top2", "").strip().replace("\n", " | "),
+          flush=True)
     cases = [
         ("motion_model_1000x1000", dict(B=0, Q=1000, T=1000)),
         ("local_map_8192x1000", dict(B=0, Q=8192, T=1000)),
@@ -398,9 +496,11 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     import torch
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
+    from c_orb_slam_tpu_torch.optim import pose_opt
 
     torch.cuda.synchronize()
     w2.reset_launches()
+    pose_opt.reset_launches()
     host_ms = []
     t_steady = None
     for i, fr in enumerate(frames):
@@ -417,6 +517,7 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t_steady) * 1000.0
     launches = w2.launches
+    pose_launches = pose_opt.launches
     shapes = {"x".join(map(str, k)): v for k, v in sorted(w2.launch_shapes.items())}
 
     poses, stamps = sysm.frame_poses()
@@ -430,7 +531,7 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     sha = traj_io.sha256(poses, stamps)
     print(f"{label} frames tracked {len(poses)}/{n}, ATE {ate:.5f} m ({scale}), "
           f"local BA solves {sysm.local_mapping.n_local_ba}, window_top2 launches {launches}, "
-          f"final state {sysm.tracking_state()}, trajectory sha256 {sha}", flush=True)
+          f"pose_gn launches {pose_launches}, final state {sysm.tracking_state()}, trajectory sha256 {sha}", flush=True)
     print(f"{label} window_top2 launches by shape B x Q x T over {n} frames: {json.dumps(shapes)}",
           flush=True)
     print(f"{label} ms/frame after {warmup} warm-up frames: mean {wall_ms / len(steady):.3f} "
@@ -440,7 +541,16 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     print(f"{label} host ms per stage over the steady frames: {json.dumps(stages)}", flush=True)
     if launches <= 0:
         raise AssertionError(f"{label}: window_top2 never launched on the main path")
-    return dict(n_ok=len(poses), ate=ate, launches=launches, ids=ids, host_ms=host_ms, sha=sha)
+    if pose_launches <= 0:
+        raise AssertionError(f"{label}: the pose-solve kernel never launched on the main path")
+    return dict(n_ok=len(poses), ate=ate, launches=launches, pose_launches=pose_launches, ids=ids,
+                host_ms=host_ms, sha=sha)
+
+
+def _launches(run):
+    """A main-path run's launches of the two kernels, as the phases sum
+    them."""
+    return collections.Counter(window_top2=run["launches"], pose_gn=run["pose_launches"])
 
 
 def _gates(label, run, n, ate_gate):
@@ -481,7 +591,7 @@ def phase2(dev):
     _gates("phase2", run, n, 0.05)
     if sysm.local_mapping.n_local_ba < 1:
         raise AssertionError("phase2: no local BA ran")
-    return run["launches"]
+    return _launches(run)
 
 
 def phase3(dev):
@@ -495,7 +605,7 @@ def phase3(dev):
 
     c, cfg, frames, traj = bench.load("mono_tum30")
     dt = c["dt_frame"]
-    launches, shas = 0, []
+    launches, shas = collections.Counter(), []
     for k in (1, 2):
         label = f"phase3 run {k}"
         sysm = System(cfg, dev, enable_loop_closing=False)
@@ -510,7 +620,7 @@ def phase3(dev):
         _gates(label, run, c["n_frames"], c["ate_gate"])
         if sysm.tracking_state() != TrackState.OK:
             raise AssertionError(f"{label}: tracking not OK at the end")
-        launches += run["launches"]
+        launches += _launches(run)
         shas.append(run["sha"])
     print(f"phase3 trajectory sha256 of the two runs: {shas[0]} {shas[1]}", flush=True)
     if shas[0] != shas[1]:
@@ -532,7 +642,7 @@ def phase4(dev):
     run = drive("phase4", sysm, frames, lambda s, i, f: s.track_stereo(f[0], f[1], i * dt),
                 traj, 1.0 / dt, with_scale=False, warmup=c["warmup"])
     _gates("phase4", run, c["n_frames"], c["ate_gate"])
-    return run["launches"]
+    return _launches(run)
 
 
 def phase5(dev):
@@ -574,7 +684,7 @@ def phase5(dev):
     if reloc_id < 30:
         raise AssertionError(f"{label}: no relocalization at frame 30 or later")
     _gates(label, run, n, 0.05)
-    return run["launches"]
+    return _launches(run)
 
 
 def _angle(R):
@@ -1133,7 +1243,8 @@ def phase6_singular(dev):
     if not (torch.equal(sc[0][1], sc[1][1].cpu())
             and torch.allclose(sc[0][0], sc[1][0].cpu(), rtol=1e-4, equal_nan=True)):
         raise AssertionError("homography score of a rank-2 hypothesis: CUDA differs from the CPU")
-    print(f"phase6 pose solve at zero damping (pose_opt.py solve_ex): NaN pose on both devices, "
+    print(f"phase6 pose solve at zero damping (pose_opt.py: solve_ex on the CPU, the pose_gn "
+          f"kernel's elimination on CUDA): NaN pose on both devices, "
           f"as JAX's; rank-2 homography score (twoview.py _score_h inv_ex): scores "
           f"{[round(float(x), 3) for x in sc[1][0].cpu()]} on CUDA, equal to the CPU's, inlier "
           f"flags equal", flush=True)
@@ -1187,7 +1298,7 @@ def orbit_trajectory(n_frames, r_path=8.0, frac=1.18):
 
 
 def loop_run(label, dev, sensor_name, mesh=None, n=240):
-    """The 240-frame orbit with loop closing on; returns window_top2's
+    """The 240-frame orbit with loop closing on; returns the two kernels'
     launches. Gates: tests/test_e2e_loop.py's. With a `mesh` of more than
     one shard the System takes the sharded routes, and the run must show
     them: the essential graph through dpose_graph, the global BA as a
@@ -1339,7 +1450,7 @@ def loop_run(label, dev, sensor_name, mesh=None, n=240):
             raise AssertionError(f"{label}: the global BA was not a _ShardedGbaJob: {gba_jobs}")
         if routes["dba"] < 1:
             raise AssertionError(f"{label}: no full-bucket local BA went through dba")
-    return run["launches"]
+    return _launches(run)
 
 
 def phase7(dev):
@@ -1426,6 +1537,7 @@ def phase9(dev):
     from c_orb_slam_tpu_torch.io.images import write_pgm, write_tum_rgbd_tree
     from c_orb_slam_tpu_torch.io.native import decode_raw
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
+    from c_orb_slam_tpu_torch.optim import pose_opt
     from c_orb_slam_tpu_torch.system import System
     from c_orb_slam_tpu_torch.tools import eval_cli_kitti
     from c_orb_slam_tpu_torch.tracking import TrackState
@@ -1442,7 +1554,7 @@ def phase9(dev):
     traj = syn.smooth_trajectory(PHASE9_ALL)
     images = [_u8(syn.render_scene(xw, inten, size, T, K4)) for T in traj]
     depths = [np.round(syn.render_depth(xw, size, T, K4) * 5000).astype(np.uint16) for T in traj]
-    launches = 0
+    launches = collections.Counter()
     with tempfile.TemporaryDirectory(prefix="phase9_") as d:
         seq = os.path.join(d, "tum")
         assoc = write_tum_rgbd_tree(seq, images, depths, [i / fps for i in range(PHASE9_ALL)],
@@ -1464,6 +1576,7 @@ def phase9(dev):
             out, map_path = os.path.join(d, "traj.txt"), os.path.join(d, "map.npz")
             torch.cuda.synchronize()
             w2.reset_launches()
+            pose_opt.reset_launches()
             t0 = time.perf_counter()
             mapper = rgbd_tum.main([settings, seq, "--associations", assoc, "--out", out,
                                     "--kf-out", os.path.join(d, "kf.txt"), "--no-realtime",
@@ -1471,7 +1584,7 @@ def phase9(dev):
                                     "--max-frames", str(PHASE9_MAP)])
             torch.cuda.synchronize()
             drv_s = time.perf_counter() - t0
-        launches += w2.launches
+        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches)
         rows = np.loadtxt(out)
         ids = np.round(rows[:, 0] * fps).astype(int)
         centres = np.concatenate([np.tile(np.eye(3), (len(rows), 1, 1)), -rows[:, 1:4, None]], 2)
@@ -1479,7 +1592,8 @@ def phase9(dev):
         n_kf, n_pt = len(mapper.map.live_keyframes()), int(mapper.map.pt_valid.sum())
         print(f"phase9 rgbd_tum driver: {len(rows)}/{PHASE9_MAP} frames in the saved TUM "
               f"trajectory, ATE {ate:.5f} m (absolute scale), {drv_s:.1f} s with the map save, "
-              f"{n_kf} keyframes, {n_pt} points, window_top2 launches {w2.launches} "
+              f"{n_kf} keyframes, {n_pt} points, pose_gn launches {pose_opt.launches}, "
+              f"window_top2 launches {w2.launches} "
               f"{json.dumps({'x'.join(map(str, k)): v for k, v in sorted(w2.launch_shapes.items())})}",
               flush=True)
         if len(rows) < 0.9 * PHASE9_MAP or not ate < 0.05:
@@ -1505,7 +1619,7 @@ def phase9(dev):
         run = drive("phase9 localization", loc, frames,
                     lambda s, j, f: s.track_rgbd(f[0], f[1], (PHASE9_LOC + j) / fps),
                     traj, fps, with_scale=False, on_frame=on_frame)
-        launches += run["launches"]
+        launches += _launches(run)
         mapped = [i for i in run["ids"] if i < PHASE9_MAP]
         poses, stamps = loc.frame_poses()
         sel = [k for k, t in enumerate(stamps) if round(t * fps) < PHASE9_MAP]
@@ -1565,13 +1679,15 @@ def phase9(dev):
         gt = eval_cli_kitti.generate_tree(kitti, n)
         out = os.path.join(d, "kitti.txt")
         w2.reset_launches()
+        pose_opt.reset_launches()
         stereo_kitti.main([os.path.join(kitti, "settings.yaml"), kitti, "--out", out, "--kf-out",
                            os.path.join(d, "kitti_kf.txt"), "--no-realtime", "--device", str(dev)])
         torch.cuda.synchronize()
-        launches += w2.launches
+        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches)
         n_rows, ate = eval_cli_kitti.kitti_ate(out, gt)
         print(f"phase9 stereo_kitti driver at KITTI geometry: {n_rows}/{n} frames, ATE "
-              f"{ate} m, window_top2 launches {w2.launches}", flush=True)
+              f"{ate} m, window_top2 launches {w2.launches}, pose_gn launches {pose_opt.launches}",
+              flush=True)
         if n_rows != n or not ate < 0.05:
             raise AssertionError(f"phase9: stereo_kitti tracked {n_rows}/{n}, ATE {ate}")
     return launches
@@ -2071,8 +2187,8 @@ def phase11(dev):
     cut to 90 frames. Prints its four records; fails unless the child exits 0
     and every record holds its bench.py gate (no error, vs_baseline > 0),
     ran its frames with loop closing on on this card, carries its power
-    limit, and launched window_top2. Returns the launches (over each
-    configuration's timed window)."""
+    limit, and launched window_top2 and pose_gn. Returns the two kernels'
+    launches (over each configuration's timed window)."""
     import torch
     from c_orb_slam_tpu_torch.tools import bench
 
@@ -2097,12 +2213,14 @@ def phase11(dev):
                                  f"power limit: {rec}")
         if rec["frames"] != min(BENCH_MAX_FRAMES, bench.CONFIGS[name]["n_frames"]):
             raise AssertionError(f"phase11 {name}: ran {rec['frames']} frames")
-        if rec["window_top2_launches"] <= 0:
-            raise AssertionError(f"phase11 {name}: window_top2 never launched")
+        if rec["window_top2_launches"] <= 0 or rec["pose_gn_launches"] <= 0:
+            raise AssertionError(f"phase11 {name}: window_top2 or pose_gn never launched")
         if rec["loops_closed"]:
             print(f"phase11 {name}: {rec['loops_closed']} loop(s) closed on a path that never "
                   f"comes back to a place it saw: a false detection", flush=True)
-    return sum(rec["window_top2_launches"] for rec in recs)
+    return sum((collections.Counter(window_top2=rec["window_top2_launches"],
+                                    pose_gn=rec["pose_gn_launches"]) for rec in recs),
+               collections.Counter())
 
 
 def _phase12_child(dev, kind, args, timeout):
@@ -2199,24 +2317,31 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     try:
         rows, max_err, empty_ms = phase1(dev)
-        launches = 0
+        pose_row = pose_gn_row(dev)
+        launches = collections.Counter()
         for num, phase in ((2, phase2), (3, phase3), (4, phase4), (5, phase5), (6, phase6),
                            (7, phase7), (8, phase8), (9, phase9)):
             t0 = time.perf_counter()
-            launches += phase(dev) or 0
+            got = phase(dev) or collections.Counter()
+            launches += got
             if num == 6:
                 phase6_loop(dev)
                 phase6_singular(dev)
                 phase6_repeat(dev)
-            print(f"phase{num} took {time.perf_counter() - t0:.1f} s", flush=True)
+            print(f"phase{num} took {time.perf_counter() - t0:.1f} s, main-path kernel launches "
+                  f"{json.dumps(got)}", flush=True)
         t0 = time.perf_counter()
         singles = phase10a(dev)
         phase10b(dev, singles)
-        launches += phase10c(dev)
-        print(f"phase10 took {time.perf_counter() - t0:.1f} s", flush=True)
+        got = phase10c(dev)
+        launches += got
+        print(f"phase10 took {time.perf_counter() - t0:.1f} s, main-path kernel launches "
+              f"{json.dumps(got)}", flush=True)
         t0 = time.perf_counter()
-        launches += phase11(dev)
-        print(f"phase11 took {time.perf_counter() - t0:.1f} s", flush=True)
+        got = phase11(dev)
+        launches += got
+        print(f"phase11 took {time.perf_counter() - t0:.1f} s, main-path kernel launches "
+              f"{json.dumps(got)}", flush=True)
         t0 = time.perf_counter()
         phase12(dev)
         print(f"phase12 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2229,18 +2354,29 @@ def main() -> int:
     # The times are those of the local map's search, the largest call of a
     # tracked frame (phases 2, 3 and 5; "by_shape" has every case's times,
     # the loop runs' shapes among them). No single PyTorch call computes a
-    # windowed top-2: no library time.
+    # windowed top-2: no library time. pose_gn replaces no TPU kernel (the
+    # JAX package leaves its loop to XLA); its times are the tracker's
+    # solve. Each kernel's launches are those of the main-path runs of
+    # phases 2-11 (the System runs and the example programs), not of the checks.
     print(json.dumps({"kernels": [{
         "name": "window_top2",
         "route": "cuda",
         "source": "c_orb_slam_tpu_torch/csrc/window_top2.cu",
         "replaces": "c_orb_slam_tpu/ops/pallas_match.py:163",
-        "launches": launches,
+        "launches": launches["window_top2"],
         "max_abs_err": max_err,
         **rows["local_map_8192x1000"],
         "empty_launch_ms": empty_ms,
         "library_ms": None,
         "by_shape": rows,
+    }, {
+        "name": "pose_gn",
+        "route": "cuda",
+        "source": "c_orb_slam_tpu_torch/csrc/pose_gn.cu",
+        "replaces": None,
+        "launches": launches["pose_gn"],
+        **pose_row,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
