@@ -13,13 +13,16 @@ one host thread for torch's own CPU ops: the port's host work is one
 thread, and both are noise to its clock. With ``trace`` it then runs one
 second of sensor frames (a keyframe period of ORB-SLAM2's rule) inside
 one ``torch.profiler`` session (a new session, up to ``TRACE_SESSIONS``,
-when one records no CUDA kernel). Last, the plain reference
-(``reference.py``) judges every frame handed in after the warm-up.
+when one records no CUDA kernel). Last, with the final map's arrays copied
+and the program's state freed, the plain reference (``reference.py``)
+judges every frame handed in after the warm-up, and the map.
 
 What belongs to one configuration, one mix or one per-layer metric lives
 in a file of its own, found by the name in ``BENCHMARK.json``:
 ``configs/<config>.json``, ``traffic/<mix>.json`` (naming its generator,
-``traffic/<generator>.py``) and ``layers/<metric>.py``.
+``traffic/<generator>.py``) and ``layers/<metric>.py``. A held cell, a
+configuration and a mix that ``BENCHMARK.json`` does not list, is found
+by those two names alone (``held_spec``), for ``readings.py``.
 """
 
 from __future__ import annotations
@@ -70,16 +73,31 @@ def load_spec(workload: str, root: str = ROOT) -> dict:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json: {sorted(cells)}")
     cell = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
-    config = load_json(os.path.join(root, configs[cell["config"]]["file"]))
-    mix = load_json(os.path.join(here, "traffic", cell["traffic"] + ".json"))
-    gen = load_module(os.path.join(here, "traffic", mix["generator"] + ".py"),
-                      "slambench_traffic_" + mix["generator"])
     readers = {m["name"]: load_module(os.path.join(here, "layers", m["name"] + ".py"),
                                       "slambench_layer_" + m["name"].replace(".", "_"))
                for m in bench["per_layer"] if applies(m, workload)}
-    return dict(cell=cell, config=config, mix=mix, gen=gen, readers=readers,
+    return dict(cell_spec(cell, os.path.join(root, configs[cell["config"]]["file"]), root),
+                readers=readers,
                 end_to_end=[m for m in bench["end_to_end"] if applies(m, workload)],
                 per_layer=[m for m in bench["per_layer"] if applies(m, workload)])
+
+
+def held_spec(config: str, traffic: str, root: str = ROOT) -> dict:
+    """The spec of a configuration and a mix that ``BENCHMARK.json`` does
+    not list (a held cell): ``configs/<config>.json`` under
+    ``traffic/<traffic>.json`` on one chip, with no metric readers."""
+    cell = dict(name=f"{config}.{traffic}", config=config, traffic=traffic, chips=1)
+    return dict(cell_spec(cell, os.path.join(root, "slambench", "configs", config + ".json"), root),
+                readers={}, end_to_end=[], per_layer=[])
+
+
+def cell_spec(cell: dict, config_file: str, root: str) -> dict:
+    """A cell's configuration, mix and generator."""
+    here = os.path.join(root, "slambench")
+    mix = load_json(os.path.join(here, "traffic", cell["traffic"] + ".json"))
+    gen = load_module(os.path.join(here, "traffic", mix["generator"] + ".py"),
+                      "slambench_traffic_" + mix["generator"])
+    return dict(cell=cell, config=load_json(config_file), mix=mix, gen=gen)
 
 
 def forbidden_modules() -> list:
@@ -186,16 +204,19 @@ def precision() -> dict:
                 float32_matmul_precision=torch.get_float32_matmul_precision())
 
 
-def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
+def run(workload, seed: int, seconds: float, trace: bool, device=None,
         t_start: float | None = None, root: str = ROOT, tf32: bool = False) -> dict:
-    """One run (see the module docstring). Returns the result line's
-    fields, the numbers compared and the detail record.
+    """One run (see the module docstring) of the cell `workload`, a name
+    in ``BENCHMARK.json`` or a spec (``held_spec``). Returns the result
+    line's fields, the numbers compared, the detail record and the final
+    map's arrays that the reference read (``reference.reprojection``).
 
     `tf32` switches on the TF32 path that the port pins off (the control
     of ``readings.py``); it is set after the port is imported, which pins
     it, and the detail record keeps the precision in effect."""
     t_start = time.perf_counter() if t_start is None else t_start
-    spec = load_spec(workload, root)
+    spec = workload if isinstance(workload, dict) else load_spec(workload, root)
+    workload = spec["cell"]["name"]
     config, mix = spec["config"], spec["mix"]
     st = config["settings"]
     rate = float(st["Camera.fps"])
@@ -322,14 +343,18 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
     loops = sysm.loop_closing.n_loops_closed if sysm.loop_closing is not None else 0
     m = sysm.map
     map_xyz = np.asarray(m.pt_xyz[m.pt_valid], np.float64)
-    n_kf = len(m.live_keyframes())
+    live = m.live_keyframes()
+    final_map = dict(kf_pose=m.kf_pose[live], kf_xy=m.kf_xy[live], kf_octave=m.kf_octave[live],
+                     kf_mp=m.kf_mp[live], pt_xyz=m.pt_xyz.copy(), pt_valid=m.pt_valid.copy())
+    n_kf = len(live)
     del sysm, track
     answers.sysm = answers.tracker = None
     if cuda:
         torch.cuda.empty_cache()
 
     # The reference, after the program's state is freed.
-    values = reference.readings(answers.by_frame, judged, world["poses"], loops, rigid=stereo)
+    values = reference.readings(answers.by_frame, judged, world["poses"], loops, rigid=stereo,
+                                settings=st, final_map=final_map)
     checks = reference.judge(values, config["correct"])
     e2e = dict(fps=len(resolved) / window_s,
                pose_latency_ms_p90=p90(latency_ms) if latency_ms else math.inf,
@@ -371,7 +396,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
                   tracked=[bool(answers.by_frame[j][1]) if j in answers.by_frame else False
                            for j in judged],
                   map_xyz=map_xyz.astype(np.float32).ravel().tolist())
-    return dict(result=result, checks=checks, detail=detail)
+    return dict(result=result, checks=checks, detail=detail, final_map=final_map)
 
 
 def write_detail(detail: dict) -> str:

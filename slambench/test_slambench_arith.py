@@ -8,6 +8,10 @@ import pytest
 
 from slambench import harness, readings, reference, trace
 
+# A 10 Hz camera (10 frames to a second) with TUM1's pinhole and pyramid.
+SETTINGS = {"Camera.fps": 10.0, "Camera.fx": 517.3, "Camera.fy": 516.5, "Camera.cx": 318.6,
+            "Camera.cy": 255.3, "ORBextractor.scaleFactor": 1.2}
+
 
 def test_p90_nearest_rank():
     assert harness.p90(range(1, 101)) == 90
@@ -74,21 +78,155 @@ def test_reference_alignment_and_readings():
     est[:, :, 3] = -c_est @ R.T
     answers = {i: (est[i], True, 0.0) for i in range(n)}
     pts = (world["xw"][:10] - t) @ R / s
-    v = reference.readings(answers, list(range(n)), gt, 0, rigid=False)
+    v = reference.readings(answers, list(range(n)), gt, 0, rigid=False, settings=SETTINGS,
+                           final_map=exact_map())
     assert v["ate_m"] < 1e-9
     # The readings' diagnostics from the same answers, as a detail record.
     detail = dict(tracked=[True] * n, judged=list(range(n)),
                   poses=[est[i].ravel().tolist() for i in range(n)],
                   map_xyz=pts.ravel().tolist())
-    diag = readings.diagnostics(detail, dict(world, poses=gt), rigid=False)
+    diag = readings.diagnostics(detail, dict(world, poses=gt), rigid=False, final_map=exact_map(),
+                                settings=SETTINGS)
     assert diag["ate_max_m"] < 1e-9 and diag["map_off_share"] == 0.0
+    assert diag["reproj_max"] < 1e-9 and diag["reproj_n"] == 4 * 59
     assert diag["rot_err_deg"] < 1e-6 and diag["scale_drift"] < 1e-9
     assert v["unresolved"] == 0 and v["lost"] == 0
-    v = reference.readings(answers, list(range(n)), gt, 0, rigid=True)
+    v = reference.readings(answers, list(range(n)), gt, 0, rigid=True, settings=SETTINGS,
+                           final_map=exact_map())
     assert v["ate_m"] > 0.1  # a stereo rig owes the metric scale
     del answers[3]
     answers[4] = (est[4], False, 0.0)
-    v = reference.readings(answers, list(range(n + 2)), gt, 1, rigid=False)
+    v = reference.readings(answers, list(range(n + 2)), gt, 1, rigid=False, settings=SETTINGS,
+                           final_map=exact_map())
     assert (v["unresolved"], v["lost"], v["loops_closed"]) == (3, 1, 1)
     checks = reference.judge(v, dict(unresolved=0, lost=0, loops_closed=0, ate_m=0.05))
     assert [c[0] for c in checks if not c[3]] == ["unresolved", "lost", "loops_closed"]
+
+
+def rot(axis: int, ang: float) -> np.ndarray:
+    c, s = math.cos(ang), math.sin(ang)
+    i, j = [a for a in range(3) if a != axis]
+    R = np.eye(3)
+    R[i, i], R[i, j], R[j, i], R[j, j] = c, -s, s, c
+    return R
+
+
+def path(n: int = 47) -> np.ndarray:
+    """(n, 3, 4) world-to-camera poses: sideways at 0.25 m/s with a wobble,
+    the camera yawing and pitching as it goes (10 frames a second)."""
+    P = np.zeros((n, 3, 4))
+    for f in range(n):
+        R = rot(1, 0.3 * math.sin(0.2 * f)) @ rot(0, 0.05 * math.cos(0.3 * f))  # R_wc
+        c = np.array([0.025 * f, 0.02 * math.sin(f), 0.1 * math.sin(0.05 * f)])
+        P[f, :, :3], P[f, :, 3] = R.T, -R.T @ c
+    return P
+
+
+def exact_map(n_kf: int = 4, n_pts: int = 60, seed: int = 3):
+    """A final map whose every observation projects exactly onto its
+    keypoint: points 1.5-4.5 m in front of keyframes of `path`, seen by
+    each keyframe at a random octave; one dead point, observed, and one
+    empty keypoint slot, both left out."""
+    rng = np.random.default_rng(seed)
+    poses = path()[::10][:n_kf]
+    Xw = np.c_[rng.uniform(-1, 2, n_pts), rng.uniform(-1, 1, n_pts), rng.uniform(1.5, 4.5, n_pts)]
+    st = SETTINGS
+    Xc = np.einsum("kij,nj->kni", poses[:, :, :3], Xw) + poses[:, None, :, 3]
+    xy = np.stack([st["Camera.fx"] * Xc[..., 0] / Xc[..., 2] + st["Camera.cx"],
+                   st["Camera.fy"] * Xc[..., 1] / Xc[..., 2] + st["Camera.cy"]], -1)
+    mp = np.tile(np.arange(n_pts + 1), (n_kf, 1))
+    mp[:, -1] = -1
+    valid = np.ones(n_pts + 1, bool)
+    valid[5] = False
+    xy = np.concatenate([xy, np.zeros((n_kf, 1, 2))], 1)
+    xy[:, 5] += 40.0  # the dead point's observations are far off, and not counted
+    return dict(kf_pose=poses, kf_xy=xy,
+                kf_octave=rng.integers(0, 8, (n_kf, n_pts + 1)), kf_mp=mp,
+                pt_xyz=np.r_[Xw, np.zeros((1, 3))], pt_valid=valid)
+
+
+def read(est, gt, rigid=False, final_map=None):
+    answers = {i: (est[i], True, 0.0) for i in range(len(est))}
+    return reference.readings(answers, list(range(len(est))), gt, 0, rigid=rigid,
+                              settings=SETTINGS, final_map=final_map or exact_map())
+
+
+def test_new_numbers_read_zero_on_the_exact_path():
+    gt = path()
+    v = read(gt.copy(), gt)
+    assert v["ate_seg_m"] < 1e-12 and v["rpe_rot_deg"] < 1e-6
+    assert v["reproj_px"] < 1e-9
+    v = read(gt.copy(), gt, rigid=True)
+    assert v["ate_seg_m"] < 1e-12
+
+
+def test_segments_cut_by_seconds():
+    assert reference.segments(43, 10) == [(0, 10), (10, 20), (20, 30), (30, 43)]
+    assert reference.segments(47, 10) == [(0, 10), (10, 20), (20, 30), (30, 40), (40, 47)]
+    assert reference.segments(45, 10) == [(0, 10), (10, 20), (20, 30), (30, 40), (40, 45)]
+    assert reference.segments(4, 10) == [(0, 4)]
+
+
+def test_scale_drift_leaves_the_segments():
+    """A monocular path whose scale grows 5% a second: the whole window's
+    one similarity sees it, each second's own does not."""
+    gt = path()
+    est = gt.copy()
+    c = reference.centers(gt)
+    scale = 1.05 ** (np.arange(len(gt)) / SETTINGS["Camera.fps"])
+    # Each step between frames scaled by the scale of its own time.
+    drifted = c[0] + np.r_[np.zeros((1, 3)), np.cumsum(np.diff(c, axis=0) * scale[1:, None], 0)]
+    est[:, :, 3] = -np.einsum("fij,fj->fi", gt[:, :, :3], drifted)
+    v = read(est, gt)
+    assert v["ate_m"] > 0.01
+    assert v["ate_seg_m"] < 0.1 * v["ate_m"] and v["ate_seg_m"] < 2e-3
+    assert v["rpe_rot_deg"] < 1e-6  # rotations untouched
+
+
+def test_segment_alignment_takes_the_roll_from_the_orientations():
+    """A second of straight sideways motion, the estimate rolled about
+    that line: the centres alone would align it perfectly, the whole
+    poses do not."""
+    n = 10
+    gt = np.zeros((n, 3, 4))
+    gt[:, :, :3] = np.eye(3)
+    gt[:, :, 3] = -np.c_[0.025 * np.arange(n), np.zeros(n), np.zeros(n)]
+    est = gt.copy()
+    est[:, :, :3] = rot(0, 0.2)  # rolled about x, the line of motion; centres unchanged
+    assert reference.ate_seg(est, gt, 10, rigid=False) < 1e-12
+    # One frame off its line by 5 cm: the aligned centres keep the error.
+    est[4, :, 3] -= est[4, :, :3] @ np.array([0.0, 0.05, 0.0])
+    assert reference.ate_seg(est, gt, 10, rigid=True) > 0.01
+
+
+@pytest.mark.parametrize("deg", [0.5, 3.0, 20.0])
+def test_rotation_offset_reads_back(deg):
+    """Frame 20's rotation off by `deg` about an axis: it is in the pairs
+    (10, 20) and (20, 30), 2 of the 37 pairs a second apart."""
+    gt = path()
+    est = gt.copy()
+    est[20, :, :3] = rot(2, math.radians(deg)) @ gt[20, :, :3]
+    est[20, :, 3] = -est[20, :, :3] @ reference.centers(gt)[20]
+    v = read(est, gt)
+    pairs = len(gt) - 10
+    assert v["rpe_rot_deg"] == pytest.approx(deg * math.sqrt(2 / pairs), rel=1e-9)
+    assert v["ate_m"] < 1e-12  # the centres are untouched
+
+
+@pytest.mark.parametrize("octave", [0, 1, 3, 7])
+@pytest.mark.parametrize("d", [1.0, 2.5])
+def test_reprojection_in_sigma_of_the_level(d, octave):
+    """One observation shifted by d pixels at octave o reads back as
+    d / 1.2**o over the observations' RMS."""
+    m = exact_map()
+    m["kf_octave"][2, 9] = octave
+    m["kf_xy"][2, 9] += d * np.array([0.6, 0.8])
+    n_obs = 4 * 59  # 4 keyframes, 60 points of which one is dead
+    v = read(path(), path(), final_map=m)
+    assert v["reproj_px"] == pytest.approx(d / 1.2 ** octave / math.sqrt(n_obs), rel=1e-6)
+    # Alone, it reads d / 1.2**o itself.
+    m["kf_mp"][:, :9] = -1
+    m["kf_mp"][:, 10:] = -1
+    m["kf_mp"][[0, 1, 3], 9] = -1
+    v = read(path(), path(), final_map=m)
+    assert v["reproj_px"] == pytest.approx(d / 1.2 ** octave, rel=1e-6)

@@ -32,10 +32,18 @@ def small_root(tmp_path_factory):
         st[k] /= 2
     st.update({"Camera.width": 320, "Camera.height": 240, "ORBextractor.nFeatures": 500,
                "ORBextractor.nLevels": 4})
-    # This size's own limit, set from its own readings on the CPU over some
-    # 22 window frames: sound, ATE 0.0047 m; the state left unchanged,
-    # 0.051; the answer altered, 0.034.
-    cfg["correct"] = dict(unresolved=0, lost=0, loops_closed=0, ate_m=0.015)
+    # This size's own limits, set from its own readings on the CPU over some
+    # 20 window frames: sound, ATE 0.0047 m; the state left unchanged,
+    # 0.051; the answer altered, 0.034. Each second aligned on its own
+    # (ate_seg_m): sound 0.0043-0.0051 m, the state left unchanged
+    # 0.0513-0.0561, the answer altered 0.0304-0.0328; limit 0.012, near
+    # the middle on a log scale. The map's reprojection (reproj_px): sound
+    # 0.58-0.68 sigma over 7 runs, the state left unchanged 9.40-9.46;
+    # limit 2.4 (the answer altered reads 0.59-0.68 on this seed: ATE's to
+    # catch). A window of some 20 frames at 30 Hz holds no pair of frames a
+    # second apart, so rpe_rot_deg reads nothing here and has no limit.
+    cfg["correct"] = dict(unresolved=0, lost=0, loops_closed=0, ate_m=0.015, ate_seg_m=0.012,
+                          reproj_px=2.4)
     (root / "slambench" / "configs" / "small.json").write_text(json.dumps(cfg))
     bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
     bench["configs"].append(dict(name="small", source="test", file="slambench/configs/small.json",
@@ -69,4 +77,5 @@ def test_sound_run_is_correct(small_root):
 def test_fault_is_not_correct(small_root, fault):
     out = run_with(small_root, fault)
     assert not out["result"]["correct"]
-    assert any(not c[3] for c in out["checks"])
+    failed = {c[0] for c in out["checks"] if not c[3]}
+    assert {"ate_m", "ate_seg_m"} <= failed, out["checks"]

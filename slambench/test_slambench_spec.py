@@ -58,6 +58,38 @@ def test_throwaway_entries_need_only_new_files(tmp_path):
     assert old["config"] == harness.load_spec("kitti_stereo.survey")["config"]
 
 
+def test_held_cell_needs_no_entry(tmp_path):
+    """A configuration and a mix that BENCHMARK.json does not list build a
+    one-chip spec with no metric readers, in a checkout without
+    BENCHMARK.json at all."""
+    shutil.copytree(HERE, tmp_path / "slambench", ignore=shutil.ignore_patterns("__pycache__"))
+    assert not (tmp_path / "BENCHMARK.json").exists()
+    spec = harness.held_spec("tum_mono", "explore", root=str(tmp_path))
+    assert spec["cell"] == dict(name="tum_mono.explore", config="tum_mono", traffic="explore",
+                                chips=1)
+    assert spec["config"] == harness.load_json(os.path.join(HERE, "configs", "tum_mono.json"))
+    assert spec["config"]["sensor"] == "MONOCULAR" and spec["mix"]["generator"] == "corridor"
+    assert callable(spec["gen"].generate)
+    assert spec["readers"] == {} and spec["end_to_end"] == [] and spec["per_layer"] == []
+    bench = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    assert "tum_mono.explore" not in {w["name"] for w in bench["workloads"]}
+    with pytest.raises(SystemExit, match="no workload"):
+        harness.load_spec("tum_mono.explore")
+    # The spec of a listed cell is its entry's, as load_spec gives it.
+    listed = harness.load_spec("kitti_stereo.survey")
+    held = harness.held_spec("kitti_stereo", "survey")
+    assert listed["config"] == held["config"] and listed["mix"] == held["mix"]
+
+
+def test_readings_wants_a_whole_held_cell():
+    from slambench import readings
+
+    for argv in (["--config", "tum_mono"], ["--traffic", "explore"],
+                 ["--workload", "kitti_stereo.survey", "--config", "tum_mono"]):
+        with pytest.raises(SystemExit):
+            readings.main(argv + ["--seconds", "1", "--seeds", "1"])
+
+
 @pytest.mark.parametrize("name,bad", [
     ("jax", True), ("jax.numpy", True), ("jaxlib.xla_client", True), ("flax", True),
     ("c_orb_slam_tpu", True), ("c_orb_slam_tpu.ops.match", True),
