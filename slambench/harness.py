@@ -13,9 +13,14 @@ one host thread for torch's own CPU ops: the port's host work is one
 thread, and both are noise to its clock. With ``trace`` it then runs one
 second of sensor frames (a keyframe period of ORB-SLAM2's rule) inside
 one ``torch.profiler`` session (a new session, up to ``TRACE_SESSIONS``,
-when one records no CUDA kernel). Last, with the final map's arrays copied
-and the program's state freed, the plain reference (``reference.py``)
-judges every frame handed in after the warm-up, and the map.
+when one records no CUDA kernel). Last, it runs the mapper's queue to its
+end (``LocalMapping.drain``) and copies the final map, then runs the
+program's local BA once more on the newest keyframe's window and copies
+the map as that BA applies; then, with the program's state freed, the
+plain reference (``reference.py``) judges every frame handed in after the
+warm-up, the final map, and that BA's answer. The seconds of the drain
+with that BA, and of the reference, both after the window, go to the
+detail record.
 
 What belongs to one configuration, one mix or one per-layer metric lives
 in a file of its own, found by the name in ``BENCHMARK.json``:
@@ -179,6 +184,15 @@ class Answers:
             self.by_frame[int(round(stamp * self.rate))] = (pose, state == self.ok, now)
 
 
+def map_arrays(m) -> dict:
+    """Copies of the map's arrays that the reference reads: the live
+    keyframes' in slot order, and every point slot's."""
+    live = m.live_keyframes()
+    return dict(kf_pose=m.kf_pose[live], kf_xy=m.kf_xy[live], kf_octave=m.kf_octave[live],
+                kf_mp=m.kf_mp[live], kf_serial=m.kf_serial[live], kf_ur=m.kf_ur[live],
+                pt_xyz=m.pt_xyz.copy(), pt_valid=m.pt_valid.copy())
+
+
 def traced_stages(metrics):
     """Have every stage of `metrics` open a ``stage:NAME`` profiler range
     too, so the trace shows which host stage was open at each idle gap."""
@@ -209,7 +223,8 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
     """One run (see the module docstring) of the cell `workload`, a name
     in ``BENCHMARK.json`` or a spec (``held_spec``). Returns the result
     line's fields, the numbers compared, the detail record and the final
-    map's arrays that the reference read (``reference.reprojection``).
+    map's arrays that the reference read (``reference.reprojection``,
+    ``reference.local_ba``).
 
     `tf32` switches on the TF32 path that the port pins off (the control
     of ``readings.py``); it is set after the port is imported, which pins
@@ -341,20 +356,41 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
 
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     loops = sysm.loop_closing.n_loops_closed if sysm.loop_closing is not None else 0
-    m = sysm.map
+    # After the window's clock has closed: the mapper's queue run to its
+    # end, then the final map copied, then the program's local BA once
+    # more on the newest keyframe's window and the map copied again as
+    # that BA applies, for the reference to re-solve (``ba_map``). A
+    # mapping pass culls keyframes right after its BA (the port's
+    # LocalMapping._finish_keyframe, as ORB-SLAM2's), which moves the
+    # window's optimum: the final map need hold no BA's answer.
+    t_drain = time.perf_counter()
+    mapper, m = sysm.local_mapping, sysm.map
+    mapper.drain()
     map_xyz = np.asarray(m.pt_xyz[m.pt_valid], np.float64)
+    final_map = map_arrays(m)
     live = m.live_keyframes()
-    final_map = dict(kf_pose=m.kf_pose[live], kf_xy=m.kf_xy[live], kf_octave=m.kf_octave[live],
-                     kf_mp=m.kf_mp[live], pt_xyz=m.pt_xyz.copy(), pt_valid=m.pt_valid.copy())
+    ba_map = None
+    if len(live) > 2 and not mapper.paused:
+        mapper._ba_dispatch(int(live[np.argmax(m.kf_serial[live])]))
+        while mapper._ba_apply() is not None:  # the CPU's apply defers once
+            pass
+        ba_map = map_arrays(m)
+    if cuda:
+        torch.cuda.synchronize(device)
+    drain_s = time.perf_counter() - t_drain
+    ba_applied = mapper.n_local_ba
+    in_effect_after = precision()
     n_kf = len(live)
-    del sysm, track
+    del sysm, track, mapper, m
     answers.sysm = answers.tracker = None
     if cuda:
         torch.cuda.empty_cache()
 
     # The reference, after the program's state is freed.
+    t_ref = time.perf_counter()
     values = reference.readings(answers.by_frame, judged, world["poses"], loops, rigid=stereo,
-                                settings=st, final_map=final_map)
+                                settings=st, final_map=final_map, ba_map=ba_map)
+    reference_s = time.perf_counter() - t_ref
     checks = reference.judge(values, config["correct"])
     e2e = dict(fps=len(resolved) / window_s,
                pose_latency_ms_p90=p90(latency_ms) if latency_ms else math.inf,
@@ -387,16 +423,20 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
                   resolved_s=[answers.by_frame[j][2] - t0 if j in answers.by_frame else None
                               for j in window],
                   stage_ms=ctx["stages"], track_stage_ms=ctx["track_stage_ms"],
-                  local_ba=ctx["local_ba"], keyframes=n_kf, map_points=len(map_xyz),
+                  local_ba=ctx["local_ba"], local_ba_applied=ba_applied, keyframes=n_kf,
+                  map_points=len(map_xyz),
                   resets=answers.resets, readings=values, e2e=e2e, precision=in_effect,
+                  precision_after=in_effect_after,
+                  after_window_s=dict(drain=drain_s, reference=reference_s),
                   trace_sessions=sessions, card=card(device) if cuda else None,
+                  trace_gemms=tr.gemms(ctx["trace"]["kernels"]) if trace else None,
                   judged=judged,
                   poses=[answers.by_frame[j][0].astype(np.float32).ravel().tolist()
                          if j in answers.by_frame else None for j in judged],
                   tracked=[bool(answers.by_frame[j][1]) if j in answers.by_frame else False
                            for j in judged],
                   map_xyz=map_xyz.astype(np.float32).ravel().tolist())
-    return dict(result=result, checks=checks, detail=detail, final_map=final_map)
+    return dict(result=result, checks=checks, detail=detail, final_map=final_map, ba_map=ba_map)
 
 
 def write_detail(detail: dict) -> str:

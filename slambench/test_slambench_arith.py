@@ -79,8 +79,9 @@ def test_reference_alignment_and_readings():
     answers = {i: (est[i], True, 0.0) for i in range(n)}
     pts = (world["xw"][:10] - t) @ R / s
     v = reference.readings(answers, list(range(n)), gt, 0, rigid=False, settings=SETTINGS,
-                           final_map=exact_map())
+                           final_map=exact_map(), ba_map=exact_map())
     assert v["ate_m"] < 1e-9
+    assert v["ba_gap"] < 1e-12 and v["ba_move_rel"] < 1e-9 and v["ba_window"]["free"] == 2
     # The readings' diagnostics from the same answers, as a detail record.
     detail = dict(tracked=[True] * n, judged=list(range(n)),
                   poses=[est[i].ravel().tolist() for i in range(n)],
@@ -92,12 +93,13 @@ def test_reference_alignment_and_readings():
     assert diag["rot_err_deg"] < 1e-6 and diag["scale_drift"] < 1e-9
     assert v["unresolved"] == 0 and v["lost"] == 0
     v = reference.readings(answers, list(range(n)), gt, 0, rigid=True, settings=SETTINGS,
-                           final_map=exact_map())
+                           final_map=exact_map(), ba_map=None)
     assert v["ate_m"] > 0.1  # a stereo rig owes the metric scale
+    assert v["ba_gap"] == v["ba_move_rel"] == math.inf and v["ba_window"] is None
     del answers[3]
     answers[4] = (est[4], False, 0.0)
     v = reference.readings(answers, list(range(n + 2)), gt, 1, rigid=False, settings=SETTINGS,
-                           final_map=exact_map())
+                           final_map=exact_map(), ba_map=exact_map())
     assert (v["unresolved"], v["lost"], v["loops_closed"]) == (3, 1, 1)
     checks = reference.judge(v, dict(unresolved=0, lost=0, loops_closed=0, ate_m=0.05))
     assert [c[0] for c in checks if not c[3]] == ["unresolved", "lost", "loops_closed"]
@@ -142,13 +144,14 @@ def exact_map(n_kf: int = 4, n_pts: int = 60, seed: int = 3):
     xy[:, 5] += 40.0  # the dead point's observations are far off, and not counted
     return dict(kf_pose=poses, kf_xy=xy,
                 kf_octave=rng.integers(0, 8, (n_kf, n_pts + 1)), kf_mp=mp,
+                kf_serial=np.arange(n_kf), kf_ur=np.full((n_kf, n_pts + 1), -1.0),
                 pt_xyz=np.r_[Xw, np.zeros((1, 3))], pt_valid=valid)
 
 
 def read(est, gt, rigid=False, final_map=None):
     answers = {i: (est[i], True, 0.0) for i in range(len(est))}
     return reference.readings(answers, list(range(len(est))), gt, 0, rigid=rigid,
-                              settings=SETTINGS, final_map=final_map or exact_map())
+                              settings=SETTINGS, final_map=final_map or exact_map(), ba_map=None)
 
 
 def test_new_numbers_read_zero_on_the_exact_path():
@@ -230,3 +233,151 @@ def test_reprojection_in_sigma_of_the_level(d, octave):
     m["kf_mp"][[0, 1, 3], 9] = -1
     v = read(path(), path(), final_map=m)
     assert v["reproj_px"] == pytest.approx(d / 1.2 ** octave, rel=1e-6)
+
+
+# A stereo rig's bf for the BA window's tests (a 0.077 m baseline at TUM1's fx).
+BA_SETTINGS = dict(SETTINGS, **{"Camera.bf": 40.0})
+
+
+def noisy_map(stereo: bool, n_kf: int = 6, n_pts: int = 120, seed: int = 5, noise: float = 0.5):
+    """A final map of `n_kf` keyframes along `path` seeing points 1.5-4.5 m
+    deep, each keypoint `noise` px off its projection, 30% of them unseen,
+    octaves 0-2; a stereo rig's right u too, as noisy."""
+    rng = np.random.default_rng(seed)
+    poses = path()[::4][:n_kf]
+    Xw = np.c_[rng.uniform(-1, 2, n_pts), rng.uniform(-1, 1, n_pts), rng.uniform(1.5, 4.5, n_pts)]
+    st = BA_SETTINGS
+    Xc = np.einsum("kij,nj->kni", poses[:, :, :3], Xw) + poses[:, None, :, 3]
+    xy = np.stack([st["Camera.fx"] * Xc[..., 0] / Xc[..., 2] + st["Camera.cx"],
+                   st["Camera.fy"] * Xc[..., 1] / Xc[..., 2] + st["Camera.cy"]], -1)
+    xy += rng.normal(0, noise, xy.shape)
+    mp = np.tile(np.arange(n_pts), (n_kf, 1))
+    mp[rng.random((n_kf, n_pts)) < 0.3] = -1
+    ur = np.full((n_kf, n_pts), -1.0)
+    if stereo:
+        ur = xy[..., 0] - st["Camera.bf"] / Xc[..., 2] + rng.normal(0, noise, (n_kf, n_pts))
+    return dict(kf_pose=poses, kf_xy=xy, kf_octave=rng.integers(0, 3, (n_kf, n_pts)), kf_mp=mp,
+                kf_ur=ur, kf_serial=np.arange(n_kf), pt_xyz=Xw, pt_valid=np.ones(n_pts, bool))
+
+
+def at_optimum(m: dict, stereo: bool) -> dict:
+    """`m` with the window's poses and points at the reference's optimum."""
+    sol = reference.ba_solve(m, BA_SETTINGS, monocular=not stereo)
+    m = {k: np.array(v, copy=True) for k, v in m.items()}
+    m["kf_pose"][sol["cams"]] = sol["T"]
+    m["pt_xyz"][sol["points"]] = sol["X"]
+    return m
+
+
+def moved(m: dict, s: float, R: np.ndarray, t: np.ndarray) -> dict:
+    """`m` under the similarity X -> s R X + t of its world."""
+    m = dict(m)
+    Rc = m["kf_pose"][:, :, :3] @ R.T
+    m["kf_pose"] = np.concatenate(
+        [Rc, (s * m["kf_pose"][:, :, 3] - np.einsum("kij,j->ki", Rc, t))[:, :, None]], 2)
+    m["pt_xyz"] = s * m["pt_xyz"] @ R.T + t
+    return m
+
+
+def ba(m: dict, stereo: bool) -> dict:
+    return reference.local_ba(m, BA_SETTINGS, monocular=not stereo)
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_ba_readings_are_zero_at_the_optimum(stereo):
+    m = noisy_map(stereo)
+    before = ba(m, stereo)
+    assert before["ba_gap"] > 0.05 and before["ba_move_rel"] > 1e-4
+    v = ba(at_optimum(m, stereo), stereo)
+    assert v["ba_gap"] < 1e-9 and v["ba_move_rel"] < 1e-7
+    w = v["window"]
+    assert w["observations"] > 400 and w["free"] == (4 if not stereo else 5)
+    # A stereo keypoint whose right u falls off the image counts as monocular.
+    assert (w["stereo"] > 0.9 * w["observations"]) if stereo else w["stereo"] == 0
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_ba_readings_are_free_of_the_maps_frame_and_scale(stereo):
+    """A monocular map under a similarity, a stereo one under a rigid
+    motion (its scale is the rig's): the same readings."""
+    m = noisy_map(stereo)
+    s = 1.0 if stereo else 3.7
+    a, b = ba(m, stereo), ba(moved(m, s, rot(1, 0.4) @ rot(0, 0.2), np.array([1.0, -2.0, 3.0])),
+                             stereo)
+    assert b["ba_gap"] == pytest.approx(a["ba_gap"], rel=1e-6)
+    assert b["ba_move_rel"] == pytest.approx(a["ba_move_rel"], rel=1e-5)
+    assert b["window"]["median_depth"] == pytest.approx(s * a["window"]["median_depth"])
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_ba_readings_rise_with_the_map_moved(stereo):
+    """Points shaken off the optimum: the gap rises with the shake, and
+    while no observation is shaken over its gate (which would change the
+    problem) the keyframes' optimum stays where it was. Keyframes' centres
+    shaken: both rise."""
+    m = at_optimum(noisy_map(stereo), stereo)
+    rng = np.random.default_rng(1)
+    shake = rng.normal(0, 1, m["pt_xyz"].shape)
+    steps = (1e-3, 3e-3, 1e-2)
+    got = [ba(dict(m, pt_xyz=m["pt_xyz"] + eps * shake), stereo) for eps in steps]
+    assert 1e-3 < got[0]["ba_gap"] < got[1]["ba_gap"] < got[2]["ba_gap"]
+    assert got[0]["window"]["gated_out"] == 0 and got[0]["ba_move_rel"] < 1e-7
+    shift = rng.normal(0, 1, (len(m["kf_pose"]), 3))
+    got = []
+    for eps in steps:
+        T = m["kf_pose"].copy()
+        T[:, :, 3] -= eps * np.einsum("kij,kj->ki", T[:, :, :3], shift)  # centres + eps * shift
+        got.append(ba(dict(m, kf_pose=T), stereo))
+    assert 1e-3 < got[0]["ba_gap"] < got[1]["ba_gap"] < got[2]["ba_gap"]
+    assert 1e-4 < got[0]["ba_move_rel"] < got[1]["ba_move_rel"] < got[2]["ba_move_rel"]
+
+
+def window_map(frontier: bool) -> dict:
+    """Seven keyframe slots, their serials not in slot order; slot 2 the
+    newest. It shares 10 valid points with slot 0, 15 with slot 3, 3 with
+    slot 4, 1 with slot 6 (point 19, which slot 6 also sees, is dead);
+    slot 3 also sees point 22, which the newest does not; slot 5 sees only
+    points 25-29; slot 1 sees those, and point 22 where `frontier`."""
+    sees = {2: range(0, 20), 0: range(0, 10), 3: list(range(0, 15)) + [22], 4: range(15, 18),
+            6: [18, 19], 5: range(25, 30), 1: list(range(25, 30)) + ([22] if frontier else [])}
+    mp = np.full((7, 30), -1)
+    for k, pts in sees.items():
+        for j, p in enumerate(pts):
+            mp[k, j] = p
+    valid = np.ones(30, bool)
+    valid[19] = False
+    return dict(kf_mp=mp, kf_serial=np.array([5, 0, 6, 2, 3, 1, 4]), pt_valid=valid)
+
+
+def test_ba_window_follows_the_mappers_rule(monkeypatch):
+    win = reference.ba_window(window_map(frontier=True), monocular=True)
+    # The newest, then its covisible keyframes by weight; the frontier after.
+    assert win["cams"].tolist() == [2, 3, 0, 4, 6, 1]
+    assert win["fixed"].tolist() == [False] * 5 + [True]
+    assert win["points"].tolist() == list(range(19)) + [22]
+    # A point's observers, by their keyframes' serials.
+    assert win["obs_kf"][win["obs_pt"] == 5].tolist() == [3, 0, 2]
+    assert win["obs_kf"][win["obs_pt"] == 19].tolist() == [1, 3]  # point 22, the 20th
+    assert np.all(np.diff(win["obs_pt"]) >= 0)
+    assert len(win["obs_pt"]) == 19 + 10 + 16 + 3 + 1 + 1  # slot 6's point 19 is dead
+    # The caps: three local keyframes, the next two covisible ones fixed.
+    monkeypatch.setattr(reference, "BA_MAX_KFS", 3)
+    win = reference.ba_window(window_map(frontier=True), monocular=True)
+    assert win["cams"].tolist() == [2, 3, 0, 1, 4, 6]
+    assert win["fixed"].tolist() == [False] * 3 + [True] * 3
+    # The observation cap cuts point 2's three short: it is left out.
+    monkeypatch.setattr(reference, "BA_MAX_OBS", 7)
+    win = reference.ba_window(window_map(frontier=True), monocular=True)
+    assert win["obs_pt"].tolist() == [0, 0, 0, 1, 1, 1]
+
+
+@pytest.mark.parametrize("monocular", [True, False])
+def test_ba_window_gauge_without_a_frontier(monocular):
+    """No frontier: the oldest local keyframe is fixed (slot 3, serial 2),
+    and for a monocular camera the second oldest too (slot 4, serial 3)."""
+    win = reference.ba_window(window_map(frontier=False), monocular)
+    assert win["cams"].tolist() == [2, 3, 0, 4, 6]
+    fixed = {int(k) for k, f in zip(win["cams"], win["fixed"]) if f}
+    assert fixed == ({3, 4} if monocular else {3})
+    assert reference.ba_window(dict(window_map(False), kf_mp=np.full((2, 3), -1),
+                                    kf_serial=np.arange(2)), monocular) is None

@@ -19,6 +19,10 @@ LAUNCH_CALLS = frozenset((
     "cudaLaunchCooperativeKernel", "cudaGraphLaunch", "cuGraphLaunch",
 ))
 STAGE_PREFIX = "stage:"
+# Words in the names of cuBLAS's and CUTLASS's matrix-product kernels, and
+# in those of their TF32 tensor-core ones (s1688, s16816: TF32's mma shapes).
+GEMM_WORDS = ("gemm", "gemv", "xmma", "cutlass", "tensorop", "dot_kernel")
+TF32_WORDS = ("tf32", "s1688", "s16816")
 OUTSIDE = "between_stages"
 
 
@@ -67,6 +71,19 @@ def top_ops(kernels, n: int = 10) -> list:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
     return [[name[:200], us / 1e6] for name, us in ranked]
+
+
+def gemms(kernels) -> dict:
+    """{name: [launches, seconds]} of the matrix-product kernels (a name
+    that holds GEMM_WORDS, in any case), the most time first; the TF32
+    ones hold one of TF32_WORDS."""
+    by_name: dict = {}
+    for name, s, e in kernels:
+        if any(w in name.lower() for w in GEMM_WORDS):
+            n_us = by_name.setdefault(name[:200], [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e - s
+    return {k: [n, us / 1e6] for k, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])}
 
 
 def idle_by_stage(kernels, host_events, span, n: int = 10) -> list:
