@@ -6,14 +6,19 @@ and the shipped vocabulary, calls ``System.warmup()`` and tracks the
 mix's warm-up frames: that is set-up. Then it runs the window as a closed
 loop, frames handed back to back through the sensor's entry point as an
 offline run over a recorded sequence feeds them, each only while the
-window is open at its hand-in; the window closes on the call that
-resolves the last frame in flight (``Tracking.flush_pending``) and a
-synchronize. The window runs with Python's garbage collector paused and
-one host thread for torch's own CPU ops: the port's host work is one
-thread, and both are noise to its clock. With ``trace`` it then runs one
-second of sensor frames (a keyframe period of ORB-SLAM2's rule) inside
-one ``torch.profiler`` session (a new session, up to ``TRACE_SESSIONS``,
-when one records no CUDA kernel). Last, it runs the mapper's queue to its
+window is open at its hand-in. The window is open for `seconds`, or until
+the supply's last window frame is handed in (``frame_budget``), whichever
+comes first: a program that outruns the sensor's rate ends its window on
+the supply and is read over the same frames as any other that does; the
+detail record's ``window_end`` says which ended it. The window closes on
+the call that resolves the last frame in flight
+(``Tracking.flush_pending``) and a synchronize. The window runs with
+Python's garbage collector paused and one host thread for torch's own CPU
+ops: the port's host work is one thread, and both are noise to its
+clock. With ``trace`` it then runs one second of sensor frames (a
+keyframe period of ORB-SLAM2's rule), from the supply's frames kept for
+it, inside one ``torch.profiler`` session (a new session, up to
+``TRACE_SESSIONS``, when one records no CUDA kernel). Last, it runs the mapper's queue to its
 end (``LocalMapping.drain``) and copies the final map, then runs the
 program's local BA once more on the newest keyframe's window and copies
 the map as that BA applies; then, with the program's state freed, the
@@ -32,8 +37,6 @@ by those two names alone (``held_spec``), for ``readings.py``.
 
 from __future__ import annotations
 
-import contextlib
-import functools
 import gc
 import importlib.util
 import json
@@ -193,22 +196,6 @@ def map_arrays(m) -> dict:
                 pt_xyz=m.pt_xyz.copy(), pt_valid=m.pt_valid.copy())
 
 
-def traced_stages(metrics):
-    """Have every stage of `metrics` open a ``stage:NAME`` profiler range
-    too, so the trace shows which host stage was open at each idle gap."""
-    import torch
-
-    inner = metrics.stage
-
-    @contextlib.contextmanager
-    def stage(name, trace=False):
-        with torch.profiler.record_function("stage:" + name), inner(name):
-            yield
-
-    metrics.stage = stage
-    return functools.partial(setattr, metrics, "stage", inner)
-
-
 def precision() -> dict:
     """The float32 precision in effect for matmuls and convolutions."""
     import torch
@@ -219,7 +206,8 @@ def precision() -> dict:
 
 
 def run(workload, seed: int, seconds: float, trace: bool, device=None,
-        t_start: float | None = None, root: str = ROOT, tf32: bool = False) -> dict:
+        t_start: float | None = None, root: str = ROOT, tf32: bool = False,
+        to_supply_end: bool = False) -> dict:
     """One run (see the module docstring) of the cell `workload`, a name
     in ``BENCHMARK.json`` or a spec (``held_spec``). Returns the result
     line's fields, the numbers compared, the detail record and the final
@@ -228,7 +216,9 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
 
     `tf32` switches on the TF32 path that the port pins off (the control
     of ``readings.py``); it is set after the port is imported, which pins
-    it, and the detail record keeps the precision in effect."""
+    it, and the detail record keeps the precision in effect.
+    `to_supply_end` keeps the window open until the supply's last window
+    frame, whatever its clock reads (``readings.py --to-supply-end``)."""
     t_start = time.perf_counter() if t_start is None else t_start
     spec = workload if isinstance(workload, dict) else load_spec(workload, root)
     workload = spec["cell"]["name"]
@@ -291,16 +281,13 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
         t0 = time.perf_counter()
         setup_s = t0 - t_start
         now = t0
-        while now - t0 < seconds:
-            if i >= limit:
-                raise RuntimeError(
-                    f"the window used all {limit - warm} frames of the supply: the program keeps "
-                    f"up with the {rate:g} Hz sensor here, so the cell must be re-paced")
+        while (to_supply_end or now - t0 < seconds) and i < limit:
             handed[i] = now
             pose = track(i)
             i += 1
             now = time.perf_counter()
             answers.collect(now, pose)
+        window_end = "supply" if i >= limit and (to_supply_end or now - t0 < seconds) else "clock"
         sysm.tracker.flush_pending()
         if cuda:
             torch.cuda.synchronize(device)
@@ -310,6 +297,10 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
     answers.collect(t_end)
     window_s = t_end - t0
     window = sorted(handed)
+    if window_end == "supply":
+        print(f"slambench: the supply's last frame ended the window: {len(window)} frames in "
+              f"{window_s:.3f} s ({len(window) / window_s:.4f} frames/s, the sensor's rate "
+              f"{rate:g} Hz)", file=sys.stderr, flush=True)
     resolved = [j for j in window if j in answers.by_frame]
     latency_ms = [(answers.by_frame[j][2] - handed[j]) * 1e3 for j in resolved]
     ctx = dict(frames=len(window),
@@ -324,7 +315,6 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        undo = traced_stages(sysm.metrics)
         for _ in range(TRACE_SESSIONS):
             first = judged[-1] + 1
             with profile(activities=acts) as prof:
@@ -343,7 +333,6 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
             sessions.append(len(kernels))
             if kernels or not cuda:
                 break
-        undo()
         if cuda and not kernels:
             raise RuntimeError(f"{TRACE_SESSIONS} profiler sessions recorded no CUDA kernel")
         span = (min(e[1] for e in dev + host), max(e[2] for e in dev + host)) if dev else None
@@ -369,6 +358,11 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
     map_xyz = np.asarray(m.pt_xyz[m.pt_valid], np.float64)
     final_map = map_arrays(m)
     live = m.live_keyframes()
+    # The final map against its capacities: slots are used in order, then
+    # culled ones reused (``MapState._allocate_kf_slot``).
+    capacity = dict(keyframe_slots=int(m.n_keyframes), keyframes_added=int(m.n_added_keyframes),
+                    max_keyframes=cfg.capacity.max_keyframes, point_slots=int(m.n_points),
+                    points_added=int(m.n_added_points), max_points=cfg.capacity.max_points)
     ba_map = None
     if len(live) > 2 and not mapper.paused:
         mapper._ba_dispatch(int(live[np.argmax(m.kf_serial[live])]))
@@ -380,7 +374,6 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
     drain_s = time.perf_counter() - t_drain
     ba_applied = mapper.n_local_ba
     in_effect_after = precision()
-    n_kf = len(live)
     del sysm, track, mapper, m
     answers.sysm = answers.tracker = None
     if cuda:
@@ -418,13 +411,14 @@ def run(workload, seed: int, seconds: float, trace: bool, device=None,
     result["checks"] = {name: {"value": v, "limit": lim} for name, v, lim, _ in checks}
     detail = dict(workload=workload, seed=seed, seconds=seconds, trace=bool(trace),
                   world_blobs=len(world["xw"]), frames_rendered=n_total,
-                  window_frames=len(window), window_s=window_s, setup_s=setup_s,
+                  window_frames=len(window), supply_frames=limit - warm,
+                  window_end=window_end, window_s=window_s, setup_s=setup_s,
                   handed_s=[handed[j] - t0 for j in window],
                   resolved_s=[answers.by_frame[j][2] - t0 if j in answers.by_frame else None
                               for j in window],
                   stage_ms=ctx["stages"], track_stage_ms=ctx["track_stage_ms"],
-                  local_ba=ctx["local_ba"], local_ba_applied=ba_applied, keyframes=n_kf,
-                  map_points=len(map_xyz),
+                  local_ba=ctx["local_ba"], local_ba_applied=ba_applied, keyframes=len(live),
+                  map_points=len(map_xyz), map_capacity=capacity,
                   resets=answers.resets, readings=values, e2e=e2e, precision=in_effect,
                   precision_after=in_effect_after,
                   after_window_s=dict(drain=drain_s, reference=reference_s),

@@ -2,15 +2,17 @@
 numbers compared, over many seeds, for the program and for its controls,
 in one process (set-up is most of a run).
 
-    python3 slambench/readings.py --workload <cell> --seconds <s> --seeds 1,2,3 [--arm program|tf32 ...] [--trace] [--out DIR]
+    python3 slambench/readings.py --workload <cell> --seconds <s> --seeds 1,2,3 [--arm program|tf32 ...] [--trace] [--to-supply-end] [--out DIR]
     python3 slambench/readings.py --config <name> --traffic <mix> --seconds <s> --seeds ...
 
 Each run is a whole run of the cell at its own size and window (the
 harness's ``run``), so it compares as many frames as a benchmark run
-does. ``--config`` and ``--traffic`` name a held cell, one that
-``BENCHMARK.json`` does not list: ``configs/<name>.json`` under
-``traffic/<mix>.json`` on one chip, so that its limits can be set before
-it is added. The arms:
+does. ``--to-supply-end`` keeps each window open to the last frame of
+the supply of a `seconds` window, whatever its clock reads: the frames
+that a program which outruns the sensor hands in. ``--config`` and
+``--traffic`` name a held cell, one that ``BENCHMARK.json`` does not
+list: ``configs/<name>.json`` under ``traffic/<mix>.json`` on one chip,
+so that its limits can be set before it is added. The arms:
 
 - ``program``: the port as it ships;
 - ``tf32``: the control: the same program with TF32 switched on for its
@@ -30,8 +32,10 @@ it is added. The arms:
   ``faults.py``.
 
 One JSON line a run: the arm, the seed, the precision in effect, the
-readings, whether each is within its limit, the re-solved BA window, the
-seconds after the window, the local BAs applied and the dense-Schur LM
+window's frames, wall seconds and what ended it, the readings, the first
+window frame that the program lost, the final map against its capacities
+(``map_capacity``), whether each is within its limit, the re-solved BA
+window, the seconds after the window, the local BAs applied and the dense-Schur LM
 iterations whose Cholesky failed over the run (the port's
 ``ba.failed_factorizations``, warm-up included: 15 LM iterations a BA),
 and diagnostics beside them that decide nothing (``diagnostics``). ``--trace`` runs the harness's profiler sessions too
@@ -221,6 +225,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", action="store_true",
                     help="run the profiler sessions and record their matrix-product kernels")
+    ap.add_argument("--to-supply-end", action="store_true",
+                    help="run each window to the supply's last frame, whatever its clock reads")
     ap.add_argument("--out", default=None, help="directory for each run's detail record")
     args = ap.parse_args(argv)
     if (args.config is None) != (args.traffic is None):
@@ -238,7 +244,8 @@ def main(argv=None) -> int:
             try:
                 with arm_context(arm) as seen:
                     out = harness.run(spec, seed, args.seconds, args.trace,
-                                      device=args.device, tf32=arm == "tf32")
+                                      device=args.device, tf32=arm == "tf32",
+                                      to_supply_end=args.to_supply_end)
             except RuntimeError as e:  # a control that crashes has failed
                 print(json.dumps(dict(arm=arm, seed=seed, error=str(e)[:500])), flush=True)
                 continue
@@ -255,8 +262,12 @@ def main(argv=None) -> int:
                        ba_window=values["ba_window"], after_window_s=d["after_window_s"],
                        diagnostics=diagnostics(d, world, rigid, out["final_map"],
                                                spec["config"]["settings"]),
-                       frames=d["window_frames"], keyframes=d["keyframes"],
-                       map_points=d["map_points"], local_ba=d["local_ba"],
+                       frames=d["window_frames"], window_s=d["window_s"],
+                       window_end=d["window_end"],
+                       first_lost=next((j for j, t in zip(d["judged"], d["tracked"]) if not t),
+                                       None),
+                       keyframes=d["keyframes"], map_points=d["map_points"],
+                       map_capacity=d["map_capacity"], local_ba=d["local_ba"],
                        resets=d["resets"], fps=d["e2e"]["fps"],
                        p90_ms=d["e2e"]["pose_latency_ms_p90"], stage_ms=d["stage_ms"],
                        local_ba_applied=d["local_ba_applied"],

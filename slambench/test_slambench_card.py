@@ -48,17 +48,20 @@ def test_cell_runs_on_the_card(card, cell, trace):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("to_supply_end", [False, True])
 @pytest.mark.parametrize("cell", sorted(CONTROL_SEEDS))
-def test_control_is_not_correct(card, cell):
+def test_control_is_not_correct(card, cell, to_supply_end):
     """The control (the program with TF32 on, in effect as the run's
     record shows) at the cell's own size and window comes out not
-    correct."""
+    correct: the window its clock ends, and the whole supply's, which a
+    program that outruns the sensor hands in."""
     seconds = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))["run_seconds"]
     out = subprocess.run([sys.executable, "slambench/readings.py", "--workload", cell,
                           "--seconds", str(seconds), "--seeds", str(CONTROL_SEEDS[cell]),
-                          "--arm", "tf32"],
+                          "--arm", "tf32"] + (["--to-supply-end"] if to_supply_end else []),
                          cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["arm"] == "tf32" and rec["precision"]["matmul_tf32"], rec
+    assert rec["window_end"] == "supply" or not to_supply_end, rec
     assert rec["correct"] is False, rec

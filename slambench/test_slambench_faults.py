@@ -4,9 +4,11 @@ card: sound, it comes out correct; with the timed path broken underneath,
 a step that returns its state unchanged, an answer altered where it is
 produced, and the mapper's local BA answered in a lower precision. (A cell
 of one camera on one chip has no batch to halve and no exchange between
-chips to leave out.)"""
+chips to leave out.) The window ends on its clock, or on the supply's last
+frame where the program outruns the sensor."""
 
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -65,25 +67,84 @@ def small_root(tmp_path_factory):
     return str(root)
 
 
-def run_with(root, fault=None):
+def run_with(root, fault=None, cell="small.explore", seconds=SECONDS, trace=False):
     import torch
 
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
         with faults.planted(fault) if fault else contextlib.nullcontext():
-            return harness.run("small.explore", SEED, SECONDS, False, device="cpu", root=root)
+            return harness.run(cell, SEED, seconds, trace, device="cpu", root=root)
     finally:
         torch.set_num_threads(threads)
 
 
-def test_sound_run_is_correct(small_root):
-    out = run_with(small_root)
+@pytest.fixture(scope="module")
+def sound(small_root):
+    return run_with(small_root)
+
+
+def slow_sensor(root, rate):
+    """small.explore's spec with the camera at `rate` Hz and the mix's
+    speeds and periods scaled with it, so that the path is the same frame
+    for frame: a sensor that the CPU outruns."""
+    spec = harness.load_spec("small.explore", root=root)
+    spec = dict(spec, config=copy.deepcopy(spec["config"]), mix=copy.deepcopy(spec["mix"]))
+    st, mix = spec["config"]["settings"], spec["mix"]
+    f = rate / st["Camera.fps"]
+    st["Camera.fps"] = rate
+    mix["speed_m_s"] *= f
+    mix["angular_deg_s"] *= f
+    mix["path"]["cross_period_s"] /= f
+    return spec
+
+
+def test_sound_run_is_correct(sound):
+    out = sound
     assert out["result"]["correct"], out["checks"]
     window = out["detail"]["readings"]["ba_window"]
     assert window["free"] >= 2 and window["observations"] > 500
     assert out["detail"]["window_frames"] > faults.ALTERED_FRAME - faults.WARMUP
     assert out["result"]["attempted"] == out["detail"]["window_frames"]
+
+
+def test_clock_ends_the_window(sound, small_root):
+    """At the sensor's own rate the CPU falls behind: the clock ends the
+    window, and the frames handed in are the supply's first ones in order,
+    out of a supply of the same size."""
+    d, warm = sound["detail"], faults.WARMUP
+    mix = harness.load_spec("small.explore", root=small_root)["mix"]
+    assert d["window_end"] == "clock"
+    assert d["frames_rendered"] == harness.frame_budget(mix, 30.0, SECONDS, False)
+    assert d["supply_frames"] == d["frames_rendered"] - warm
+    assert 0 < d["window_frames"] < d["supply_frames"]
+    assert d["judged"] == list(range(warm, warm + d["window_frames"]))
+    assert d["window_s"] >= SECONDS
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_supply_ends_the_window(small_root, trace, capfd):
+    """A sensor slower than the CPU's pace: the window ends at the supply's
+    last frame, long before its clock, without an error; `fps` is its
+    frames over its seconds, and the profiler's frames, kept apart from the
+    supply of the window, still run."""
+    rate, seconds = 0.25, 40.0
+    spec = slow_sensor(small_root, rate)
+    out = run_with(small_root, cell=spec, seconds=seconds, trace=trace)
+    d, warm = out["detail"], faults.WARMUP
+    supply = harness.frame_budget(spec["mix"], rate, seconds, False) - warm
+    assert d["window_end"] == "supply" and "the supply's last frame" in capfd.readouterr().err
+    assert d["supply_frames"] == d["window_frames"] == supply == 10
+    assert d["window_s"] < seconds
+    assert d["e2e"]["fps"] == pytest.approx(d["window_frames"] / d["window_s"], rel=1e-12)
+    assert out["result"]["failed"] == 0
+    n_trace = harness.trace_frames(rate) if trace else 0
+    assert d["judged"] == list(range(warm, warm + supply + n_trace))
+    assert out["result"]["attempted"] == supply + n_trace
+    assert ("breakdown" in out["result"]) is trace
+    if trace:
+        assert len(d["trace_sessions"]) == 1  # the CPU records no kernel to retry for
+        assert out["result"]["device"]["window_s"] > 0
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
