@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from c_orb_slam_tpu_torch.config import OrbConfig
-from c_orb_slam_tpu_torch.ops import brief, fast, orient, pyramid
+from c_orb_slam_tpu_torch.ops import brief, fast, fast_select, orient, pyramid
 from c_orb_slam_tpu_torch.utils.metrics import no_span
 
 
@@ -129,7 +129,9 @@ def extract_orb(image: torch.Tensor, cfg: OrbConfig, seed: int = 7,
     with span("frame.pyramid"):
         levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
     with span("frame.detect"):
-        picks = select_levels(detect_levels(levels, cfg), cfg)
+        # select_levels(detect_levels(levels, cfg), cfg); on a card, one
+        # hand-written pass (ops/fast_select.py), which reads rows back to back.
+        picks = fast_select.detect_and_select([lv.contiguous() for lv in levels], cfg)
     with span("frame.orient"):
         angles = orient_levels(levels, picks, cfg)
     with span("frame.describe"):

@@ -31,7 +31,7 @@ from c_orb_slam_tpu_torch.geometry import np_se3
 from c_orb_slam_tpu_torch.io import checkpoint, trajectory as traj_io
 from c_orb_slam_tpu_torch.loop_closing import LoopClosing
 from c_orb_slam_tpu_torch.mapping import LocalMapping
-from c_orb_slam_tpu_torch.ops import window_top2
+from c_orb_slam_tpu_torch.ops import fast_select, window_top2
 from c_orb_slam_tpu_torch.optim import pose_opt
 from c_orb_slam_tpu_torch.parallel.mesh import Mesh, make_mesh
 from c_orb_slam_tpu_torch.slam_map.mapstate import MapState
@@ -320,13 +320,14 @@ class System:
         mesh of more than one shard warms the sharded route), the dense
         solvers behind two-view initialization, PnP and Sim3 RANSAC and
         the GN steps (cuSOLVER's handles and kernels on a card), and on a
-        card the libraries of the window_top2 and pose-solve kernels (built
-        with nvcc at first use)."""
+        card the libraries of the window_top2, pose-solve and FAST kernels
+        (built with nvcc at first use)."""
         self.local_mapping.warm_programs()
         warm_linalg(self.device)
         if self.device.type == "cuda":
             window_top2.empty_launch(self.device)
             pose_opt.load()
+            fast_select.load()
             torch.cuda.synchronize(self.device)
 
     def map_changed(self) -> bool:

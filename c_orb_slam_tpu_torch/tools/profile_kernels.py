@@ -84,7 +84,7 @@ def programs(name, device) -> list:
     from c_orb_slam_tpu_torch.config import Sensor
     from c_orb_slam_tpu_torch.frontend import frame
     from c_orb_slam_tpu_torch.geometry import camera
-    from c_orb_slam_tpu_torch.ops import extract, match, pyramid
+    from c_orb_slam_tpu_torch.ops import extract, fast_select, match, pyramid
     from c_orb_slam_tpu_torch.optim import ba
     from c_orb_slam_tpu_torch.system import _to_gray_f32
     from c_orb_slam_tpu_torch.tools import bench
@@ -124,6 +124,9 @@ def programs(name, device) -> list:
                 (img, orb.n_levels, orb.scale_factor)),
         Program("extract.detect_levels", size, extract.detect_levels, (levels, orb)),
         Program("extract.select_levels", size, extract.select_levels, (scores, orb)),
+        # The two above as the main path runs them: one kernel on a card.
+        Program("fast_select.detect_and_select", size, fast_select.detect_and_select,
+                (levels, orb)),
         Program("extract.orient_levels", size, extract.orient_levels, (levels, picks, orb)),
         Program("extract.describe_levels", size, extract.describe_levels,
                 (levels, picks, angles, seed)),

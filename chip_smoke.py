@@ -24,7 +24,13 @@ sums) on the tracker's solve (tests/pose_problems.py: 1 x 2,000 rows of
 KITTI geometry, 60% stereo, 30% gross outliers, 4 x 10 iterations), and
 times it: "ms" per
 call back to back, "device_ms" as a CUDA graph, "host_ms" the wrapper's
-enqueue alone, and the plain version.
+enqueue alone, and the plain version. Then it builds the FAST detection and
+selection kernel (csrc/fast_select.cu) and holds it to its plain version
+(ops/fast_select.py detect_and_select_reference: yx, response and valid of
+every slot equal, subpixel offsets within 1e-6, 3 launches a call) on one
+image's 8 levels at KITTI's 1241x376 with 2,000 features and TUM's 640x480
+with 1,000 (tests/fast_images.py), times it the same way, and prints its
+bound. Every System run below must launch it 3 times an extraction.
 
 Phases 2-5 drive the port's entry points with loop closing off (the main
 path's loop-off runs), each on a synthetic sequence rendered by
@@ -382,6 +388,100 @@ def pose_gn_row(dev):
     return row
 
 
+# Plain operations a pixel of the FAST kernel (csrc/fast_select.cu), counted
+# from its source: launch A stages 1.44 tile pixels a pixel (clamps, address,
+# bf16 rounding: 8 each, 12), tests the high threshold (16 neighbours of a
+# load, a subtraction, two conversions, two compares and two flag updates:
+# 112; two 9-run tests: 40) and scores at the cell's threshold (the same 152,
+# 64 for the two sums, 8 for the maximum and the border); launch B stages
+# 1.14 halo pixels a pixel (7), takes the 3 x 3 maximum and the keep test
+# (13) and builds and compares a packed key in each of 4 rounds (24). Pass 1
+# is counted over every pixel, which is the most it does: a cell's pass 1
+# stops at its first high-threshold corner. Launch C's sorts are under 1%.
+FAST_SELECT_OPS_PER_PIXEL = 12 + 152 + 152 + 64 + 8 + 7 + 13 + 24
+# Bytes a pixel: the level read once, the score map written and read, the
+# NMS'd map written; a candidate's value and yx written and read; an output
+# slot's yx, response, valid and offset written.
+FAST_SELECT_BYTES_PER_PIXEL = 16
+FAST_SELECT_BYTES_PER_CANDIDATE = 2 * 12
+FAST_SELECT_BYTES_PER_SLOT = 8 + 4 + 1 + 8
+
+
+def fast_select_bound(levels, cfg):
+    """(bound ms, "bytes" or "operations") of one image's detection and
+    selection: its bytes over the HBM rate against its operations over the
+    lanes' peak rate."""
+    cell = cfg.cell_size
+    pixels = sum(lv.numel() for lv in levels)
+    cells = sum(-(-lv.shape[0] // cell) * -(-lv.shape[1] // cell) for lv in levels)
+    n_bytes = (pixels * FAST_SELECT_BYTES_PER_PIXEL + 4 * cells * FAST_SELECT_BYTES_PER_CANDIDATE
+               + sum(cfg.features_per_level()) * FAST_SELECT_BYTES_PER_SLOT)
+    ops_s = pixels * FAST_SELECT_OPS_PER_PIXEL / LANE_OPS_PER_S
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def fast_select_row(dev):
+    """The FAST detection and selection kernel at the KITTI and TUM shapes
+    against its plain version (tests/test_torch_fast_select_cuda.py's
+    tolerances: yx, response and valid of every slot exactly, the subpixel
+    offsets within 1e-6), and its times: ms per call back to back (CUDA
+    events), as a CUDA graph (the device's time), the wrapper's host ms to
+    enqueue a call, and the plain version's ms. Returns a row by shape."""
+    import torch
+    from c_orb_slam_tpu_torch.ops import fast_select
+    from c_orb_slam_tpu_torch.utils import nvcc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from fast_images import CASES, levels_of
+
+    fast_select.load()
+    print("nvcc build log (fast_select):",
+          nvcc.build_logs.get("fast_select", "").strip().replace("\n", " | "), flush=True)
+    rows = {}
+    for name in ("kitti_1241x376_2000", "tum_640x480_1000"):
+        image, cfg = CASES[name]()
+        args = dict(levels=levels_of(image, cfg, dev), cfg=cfg)
+        before = fast_select.launches
+        got = fast_select.detect_and_select(**args)
+        torch.cuda.synchronize()
+        launches = fast_select.launches - before
+        want = fast_select.detect_and_select_reference(**args)
+        err = 0.0
+        for lvl, (g, w) in enumerate(zip(got, want)):
+            for label, a, b in zip(("yx", "response", "valid"), g[:3], w[:3]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"fast_select {name} level {lvl}: {label} differs "
+                                         f"from the plain version")
+            err = max(err, float((g[3] - w[3]).abs().max()) if g[3].numel() else 0.0)
+        if not err <= 1e-6:
+            raise AssertionError(f"fast_select {name}: subpixel offsets {err:.3e} from the "
+                                 f"plain version's")
+        if launches != fast_select.LAUNCHES_PER_CALL:
+            raise AssertionError(f"fast_select {name}: {launches} launches a call")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fast_select.detect_and_select(**args)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        row = dict(ms=time_call(fast_select.detect_and_select, args),
+                   device_ms=time_graph(fast_select.detect_and_select, args), host_ms=host_ms,
+                   plain_ms=time_call(fast_select.detect_and_select_reference, args,
+                                      launches=2, repeats=3),
+                   max_abs_err=err, launches_per_call=launches,
+                   valid=int(sum(int(g[2].sum()) for g in got)))
+        row["bound_ms"], row["bound_by"] = fast_select_bound(args["levels"], cfg)
+        row["device_over_bound"] = row["device_ms"] / row["bound_ms"]
+        rows[name] = row
+        print(f"phase1 fast_select {name} ({cfg.n_levels} levels): kernel == plain on yx, "
+              f"response, valid (subpixel max {err:.2e}; {row['valid']} valid); {launches} "
+              f"launches; kernel {row['ms']:.4f} ms back to back, {row['device_ms']:.4f} ms as a "
+              f"CUDA graph, wrapper host {host_ms:.4f} ms; plain {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} (device / bound "
+              f"{row['device_over_bound']:.1f})", flush=True)
+    return rows
+
+
 def phase1(dev):
     """window_top2 kernel == plain version, exactly; both timed, beside
     the empty launch and each case's bound."""
@@ -489,35 +589,49 @@ def _timed(obj, name, log):
 
 def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAMES,
           on_frame=None):
-    """Run `track(sysm, i, frame)` over the frames with the window_top2
-    launch count set to 0 just before and read just after; print and
-    return the run's numbers. `on_frame(i)` runs after each frame."""
+    """Run `track(sysm, i, frame)` over the frames with the kernels' launch
+    counts set to 0 just before and read just after; print and return the
+    run's numbers. `on_frame(i)` runs after each frame. The FAST kernel
+    must have launched 3 times for each extraction of the run."""
     import numpy as np
     import torch
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
+    from c_orb_slam_tpu_torch.ops import extract, fast_select
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
     from c_orb_slam_tpu_torch.optim import pose_opt
+
+    extract_orb, extractions = extract.extract_orb, [0]
+
+    def counted(*args, **kwargs):
+        extractions[0] += 1
+        return extract_orb(*args, **kwargs)
 
     torch.cuda.synchronize()
     w2.reset_launches()
     pose_opt.reset_launches()
+    fast_select.reset_launches()
     host_ms = []
     t_steady = None
-    for i, fr in enumerate(frames):
-        if i == warmup:
-            torch.cuda.synchronize()
-            sysm.metrics.reset()  # stage totals below cover the steady frames
-            t_steady = time.perf_counter()
-        t0 = time.perf_counter()
-        track(sysm, i, fr)
-        host_ms.append((time.perf_counter() - t0) * 1000.0)
-        if on_frame is not None:
-            on_frame(i)
-    sysm.shutdown()
+    extract.extract_orb = counted
+    try:
+        for i, fr in enumerate(frames):
+            if i == warmup:
+                torch.cuda.synchronize()
+                sysm.metrics.reset()  # stage totals below cover the steady frames
+                t_steady = time.perf_counter()
+            t0 = time.perf_counter()
+            track(sysm, i, fr)
+            host_ms.append((time.perf_counter() - t0) * 1000.0)
+            if on_frame is not None:
+                on_frame(i)
+        sysm.shutdown()
+    finally:
+        extract.extract_orb = extract_orb
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t_steady) * 1000.0
     launches = w2.launches
     pose_launches = pose_opt.launches
+    fast_launches = fast_select.launches
     shapes = {"x".join(map(str, k)): v for k, v in sorted(w2.launch_shapes.items())}
 
     poses, stamps = sysm.frame_poses()
@@ -531,7 +645,9 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
     sha = traj_io.sha256(poses, stamps)
     print(f"{label} frames tracked {len(poses)}/{n}, ATE {ate:.5f} m ({scale}), "
           f"local BA solves {sysm.local_mapping.n_local_ba}, window_top2 launches {launches}, "
-          f"pose_gn launches {pose_launches}, final state {sysm.tracking_state()}, trajectory sha256 {sha}", flush=True)
+          f"pose_gn launches {pose_launches}, fast_select launches {fast_launches} over "
+          f"{extractions[0]} extractions, final state {sysm.tracking_state()}, trajectory sha256 "
+          f"{sha}", flush=True)
     print(f"{label} window_top2 launches by shape B x Q x T over {n} frames: {json.dumps(shapes)}",
           flush=True)
     print(f"{label} ms/frame after {warmup} warm-up frames: mean {wall_ms / len(steady):.3f} "
@@ -543,14 +659,18 @@ def drive(label, sysm, frames, track, traj, fps, with_scale, warmup=WARMUP_FRAME
         raise AssertionError(f"{label}: window_top2 never launched on the main path")
     if pose_launches <= 0:
         raise AssertionError(f"{label}: the pose-solve kernel never launched on the main path")
-    return dict(n_ok=len(poses), ate=ate, launches=launches, pose_launches=pose_launches, ids=ids,
-                host_ms=host_ms, sha=sha)
+    if fast_launches != fast_select.LAUNCHES_PER_CALL * extractions[0] or not extractions[0]:
+        raise AssertionError(f"{label}: {fast_launches} fast_select launches over "
+                             f"{extractions[0]} extractions")
+    return dict(n_ok=len(poses), ate=ate, launches=launches, pose_launches=pose_launches,
+                fast_launches=fast_launches, ids=ids, host_ms=host_ms, sha=sha)
 
 
 def _launches(run):
-    """A main-path run's launches of the two kernels, as the phases sum
+    """A main-path run's launches of the three kernels, as the phases sum
     them."""
-    return collections.Counter(window_top2=run["launches"], pose_gn=run["pose_launches"])
+    return collections.Counter(window_top2=run["launches"], pose_gn=run["pose_launches"],
+                               fast_select=run["fast_launches"])
 
 
 def _gates(label, run, n, ate_gate):
@@ -1536,6 +1656,7 @@ def phase9(dev):
     from c_orb_slam_tpu_torch.io import trajectory as traj_io
     from c_orb_slam_tpu_torch.io.images import write_pgm, write_tum_rgbd_tree
     from c_orb_slam_tpu_torch.io.native import decode_raw
+    from c_orb_slam_tpu_torch.ops import fast_select
     from c_orb_slam_tpu_torch.ops import window_top2 as w2
     from c_orb_slam_tpu_torch.optim import pose_opt
     from c_orb_slam_tpu_torch.system import System
@@ -1577,6 +1698,7 @@ def phase9(dev):
             torch.cuda.synchronize()
             w2.reset_launches()
             pose_opt.reset_launches()
+            fast_select.reset_launches()
             t0 = time.perf_counter()
             mapper = rgbd_tum.main([settings, seq, "--associations", assoc, "--out", out,
                                     "--kf-out", os.path.join(d, "kf.txt"), "--no-realtime",
@@ -1584,7 +1706,8 @@ def phase9(dev):
                                     "--max-frames", str(PHASE9_MAP)])
             torch.cuda.synchronize()
             drv_s = time.perf_counter() - t0
-        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches)
+        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches,
+                                        fast_select=fast_select.launches)
         rows = np.loadtxt(out)
         ids = np.round(rows[:, 0] * fps).astype(int)
         centres = np.concatenate([np.tile(np.eye(3), (len(rows), 1, 1)), -rows[:, 1:4, None]], 2)
@@ -1680,10 +1803,12 @@ def phase9(dev):
         out = os.path.join(d, "kitti.txt")
         w2.reset_launches()
         pose_opt.reset_launches()
+        fast_select.reset_launches()
         stereo_kitti.main([os.path.join(kitti, "settings.yaml"), kitti, "--out", out, "--kf-out",
                            os.path.join(d, "kitti_kf.txt"), "--no-realtime", "--device", str(dev)])
         torch.cuda.synchronize()
-        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches)
+        launches += collections.Counter(window_top2=w2.launches, pose_gn=pose_opt.launches,
+                                        fast_select=fast_select.launches)
         n_rows, ate = eval_cli_kitti.kitti_ate(out, gt)
         print(f"phase9 stereo_kitti driver at KITTI geometry: {n_rows}/{n} frames, ATE "
               f"{ate} m, window_top2 launches {w2.launches}, pose_gn launches {pose_opt.launches}",
@@ -2318,6 +2443,7 @@ def main() -> int:
     try:
         rows, max_err, empty_ms = phase1(dev)
         pose_row = pose_gn_row(dev)
+        fast_rows = fast_select_row(dev)
         launches = collections.Counter()
         for num, phase in ((2, phase2), (3, phase3), (4, phase4), (5, phase5), (6, phase6),
                            (7, phase7), (8, phase8), (9, phase9)):
@@ -2356,8 +2482,11 @@ def main() -> int:
     # the loop runs' shapes among them). No single PyTorch call computes a
     # windowed top-2: no library time. pose_gn replaces no TPU kernel (the
     # JAX package leaves its loop to XLA); its times are the tracker's
-    # solve. Each kernel's launches are those of the main-path runs of
-    # phases 2-11 (the System runs and the example programs), not of the checks.
+    # solve. fast_select replaces none either (XLA fuses FAST and the top-k);
+    # its times are one KITTI image's 8 levels, "by_shape" adds TUM's. Each
+    # kernel's launches are those of the main-path runs of phases 2-10 (the
+    # System runs and the example programs; phase 11's records count the
+    # first two), not of the checks.
     print(json.dumps({"kernels": [{
         "name": "window_top2",
         "route": "cuda",
@@ -2377,6 +2506,15 @@ def main() -> int:
         "launches": launches["pose_gn"],
         **pose_row,
         "library_ms": None,
+    }, {
+        "name": "fast_select",
+        "route": "cuda",
+        "source": "c_orb_slam_tpu_torch/csrc/fast_select.cu",
+        "replaces": None,
+        "launches": launches["fast_select"],
+        **fast_rows["kitti_1241x376_2000"],
+        "library_ms": None,
+        "by_shape": fast_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

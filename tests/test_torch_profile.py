@@ -34,7 +34,7 @@ from c_orb_slam_tpu.system import System as JaxSystem
 from c_orb_slam_tpu_torch import config as tcfg
 from c_orb_slam_tpu_torch import mapping, tracking
 from c_orb_slam_tpu_torch.frontend import frame
-from c_orb_slam_tpu_torch.ops import extract, match, pyramid
+from c_orb_slam_tpu_torch.ops import extract, fast_select, match, pyramid
 from c_orb_slam_tpu_torch.optim import ba
 from c_orb_slam_tpu_torch.system import System as TorchSystem
 from c_orb_slam_tpu_torch.tools import profile_kernels, profile_stages
@@ -112,6 +112,7 @@ def test_profile_kernels_table_is_the_package():
         "pyramid.build_pyramid": pyramid.build_pyramid,
         "extract.detect_levels": extract.detect_levels,
         "extract.select_levels": extract.select_levels,
+        "fast_select.detect_and_select": fast_select.detect_and_select,
         "extract.orient_levels": extract.orient_levels,
         "extract.describe_levels": extract.describe_levels,
         "tracking._full_track_step": tracking._full_track_step,
